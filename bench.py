@@ -1,31 +1,28 @@
-"""Headline benchmark: 2D Euler Mach-3 forward facing step throughput.
+"""Throughput benchmark on one GPU: f32 IDP substeps per second.
 
-Prints one JSON line {"metric", "value", "unit", "vs_baseline"}.
+Prints one JSON line {"metric", "value", "unit", "device", ...}.
 
-Metric: MQ/s = million DoF (Q-point) updates per second per chip, the
+Metric: MQ/s = million DoF (Q-point) updates per second per device, the
 reference's primary throughput figure (time_loop.template.h:1160-1214):
-n_dofs * n_substeps / wall.  Baseline: 100 MQ/s/chip (driver north star).
+n_dofs * n_substeps / wall.  Runs only on a GPU listed in the peak table
+(ryujin_tpu/utils/device.py); any other device is an error.
 
-Additional cases share the same developed-flow discipline (>=1000-step
-warmup so the limiter Newton runs everywhere — thin 2-step warmups
-overstate throughput; VERDICT r4 weak #1) via BENCH_CASE:
+Every case develops the flow before timing (>= 1000-step warmup so the
+limiter Newton runs everywhere; a thin warmup overstates throughput).
+Cases via BENCH_CASE:
 
-  step2d      2D Mach-3 forward-facing step (default; the driver metric)
-  box3d       3D Mach-3 box (z-slab kernels)
-  cylinder3d  3D Mach-3 cylinder (o-grid x z extrusion)
+  step2d      2D Mach-3 forward-facing step (default)
+  box3d       3D Mach-3 box
+  cylinder3d  3D Mach-3 cylinder (O-grid x z extrusion)
   amr2d       locally-refined square with 2:1 hanging nodes (multiblock)
-  q2step2d    2D Mach-3 step with cG Q2 (reach-2 canvas kernels)
+  q2step2d    2D Mach-3 step with cG Q2 (reach-2 canvas)
 """
 
 from __future__ import annotations
 
 import json
 import os
-import sys
 import time
-
-BASELINE_MQS = 100.0
-
 
 def _case_step2d(jnp):
     from ryujin_tpu.equations.euler import Euler
@@ -62,7 +59,6 @@ def _case_box3d(jnp):
     from ryujin_tpu.equations.euler_initial_states import make_initial_state
     from ryujin_tpu.offline import assembly, geometry, structured
     from ryujin_tpu.offline.mesh import Boundary
-    from ryujin_tpu.solver.pallas_step import pallas_default_margin
 
     subdiv = json.loads(os.environ.get("BENCH_SUBDIV", "[31, 16, 16]"))
     refinement = int(os.environ.get("BENCH_REFINEMENT", "2"))
@@ -76,9 +72,7 @@ def _case_box3d(jnp):
         dim=3,
     )
     data = assembly.assemble(mesh)
-    packed = structured.pack_structured(
-        data, mesh, margin=pallas_default_margin(eq, 3)
-    )
+    packed = structured.pack_structured(data, mesh)
     init = make_initial_state(eq, "uniform", primitive_state=(1.4, 3.0, 1.0))
     return eq, packed, init, "euler3d_mach3_box_throughput", 1000
 
@@ -87,15 +81,12 @@ def _case_cylinder3d(jnp):
     from ryujin_tpu.equations.euler import Euler
     from ryujin_tpu.equations.euler_initial_states import make_initial_state
     from ryujin_tpu.offline import assembly, geometry, structured
-    from ryujin_tpu.solver.pallas_step import pallas_default_margin
 
     refinement = int(os.environ.get("BENCH_REFINEMENT", "3"))
     eq = Euler(dim=3)
     mesh = geometry.cylinder(refinement=refinement, dim=3)
     data = assembly.assemble(mesh)
-    packed = structured.pack_structured(
-        data, mesh, margin=pallas_default_margin(eq, 3)
-    )
+    packed = structured.pack_structured(data, mesh)
     init = make_initial_state(
         eq, "uniform", direction=[1, 0, 0], position=[1, 0, 0],
         primitive_state=[1.4, 3.0, 1.0],
@@ -136,155 +127,89 @@ CASES = {
 
 
 def main():
-    import jax
+    from ryujin_tpu.utils import device
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax")
+    smi = device.query_nvidia_smi()  # before this process touches the card
+    from ryujin_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
+    import jax
     import jax.numpy as jnp
 
     from ryujin_tpu.postprocess.error import interpolate_nodal
     from ryujin_tpu.solver.hyperbolic import HyperbolicModule
     from ryujin_tpu.solver.integrator import TimeIntegrator
 
+    dev = device.require_gpu()
+    peak = device.peaks(dev["kind"])
     case = os.environ.get("BENCH_CASE", "step2d")
     n_steps = int(os.environ.get("BENCH_STEPS", "20"))
     dtype = jnp.float32
 
     eq, packed, init, metric, warmup_default = CASES[case](jnp)
-    # Develop the flow before timing: from the uniform inflow state the
-    # limiter's all-lanes early exit skips most Newton work, so a
-    # 2-step warmup overstates steady-state throughput.  Default warmup
-    # advances until the bow shock spans the domain.
     warmup = int(os.environ.get("BENCH_WARMUP", str(warmup_default)))
 
-    backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    hm = HyperbolicModule(eq, packed, init, dtype=dtype, backend=backend)
+    hm = HyperbolicModule(eq, packed, init, dtype=dtype)
     ti = TimeIntegrator(
         hm, scheme="erk 33", cfl_min=0.45, cfl_max=0.9,
         cfl_recovery_strategy=(
             "none" if case == "step2d" else "bang bang control"
         ),
     )
+    substeps_per_step = 3  # erk 33
+    n_dofs = packed.n_nodes
 
     U = interpolate_nodal(init, packed, eq, 0.0, dtype)
-
-    # compile + develop the bow shock (device-resident, one sync):
-    U, _, t, _, _, _ = ti.advance(U, 0.0, n_steps=max(warmup, 2))
-    float(t)  # full sync (block_until_ready is unreliable on some backends)
+    # compile + develop the flow (device-resident, one sync):
+    U, _, t, _, _, _ = jax.block_until_ready(
+        ti.advance(U, 0.0, n_steps=max(warmup, 2))
+    )
 
     reps = int(os.environ.get("BENCH_REPS", "1"))
     mqs_reps = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        out = ti.advance(U, t, n_steps=n_steps)
-        float(out[2])
+        out = jax.block_until_ready(ti.advance(U, t, n_steps=n_steps))
         wall = time.perf_counter() - t0
-        mqs_reps.append(packed.n_nodes * n_steps * 3 / wall / 1e6)
+        mqs_reps.append(n_dofs * n_steps * substeps_per_step / wall / 1e6)
     mqs = mqs_reps[-1]
 
-    n_dofs = packed.n_nodes
-    substeps_per_step = 3  # erk 33
-
-    # ---- flops/substep + MFU (reference metric definition is MQ/s,
-    # time_loop.template.h:1160-1214; MFU judges "fast" against the chip
-    # rather than the 100 MQ/s constant).  The fused Pallas kernels are
-    # opaque custom calls, so the flop count comes from XLA's cost
-    # analysis of the SAME substep on the "xla" backend — the useful
-    # algorithmic work both backends perform (transcendentals counted
-    # as 1 flop: a conservative lower bound).
     rec = {
         "metric": metric,
         "value": round(mqs, 3),
-        "unit": "MQ/s/chip",
-        "vs_baseline": round(mqs / BASELINE_MQS, 4),
+        "unit": "MQ/s/device",
+        "device": dev,
+        "nvidia_smi": smi,
+        "precision": "float32",
     }
     if reps > 1:
         rec["reps"] = [round(v, 2) for v in mqs_reps]
-    if os.environ.get("BENCH_MFU", "1") != "0" and case == "step2d":
-        try:
-            hm_x = HyperbolicModule(eq, packed, init, dtype=dtype,
-                                    backend="xla")
+    # flops per substep from XLA's cost analysis of one substep
+    # (transcendentals counted as 1 flop: a lower bound), against the
+    # device's published f32 peak:
+    def substep(Uf, tau):
+        Up, prec = hm.prepare_state_vector(Uf, 0.0)
+        return hm.step(
+            Up, prec,
+            jnp.zeros((0,) + Up.shape, dtype),
+            jnp.zeros((0,) + prec.shape, dtype),
+            jnp.zeros((0,), dtype),
+            tau, jnp.asarray(0.9, dtype),
+            jnp.asarray(jnp.inf, dtype), compute_tau=True,
+        )
 
-            def substep(Uf, tau):
-                Up, prec = hm_x.prepare_state_vector(Uf, 0.0)
-                return hm_x.step(
-                    Up, prec,
-                    jnp.zeros((0,) + Up.shape, dtype),
-                    jnp.zeros((0,) + prec.shape, dtype),
-                    jnp.zeros((0,), dtype),
-                    tau, jnp.asarray(0.9, dtype),
-                    jnp.asarray(jnp.inf, dtype), compute_tau=True,
-                )
-
-            cost = (
-                jax.jit(substep)
-                .lower(out[0], jnp.zeros((), dtype))
-                .compile()
-                .cost_analysis()
-            )
-            if isinstance(cost, (list, tuple)):
-                cost = cost[0]
-            flops = float(cost.get("flops", 0.0))
-            # v5e peak: 197 TFLOP/s bf16 -> 98.5 TFLOP/s f32
-            peak = float(os.environ.get("BENCH_PEAK_FLOPS", "98.5e12"))
-            fps = flops * mqs * 1e6 / n_dofs  # flops/substep * substeps/s
-            rec["flops_per_substep"] = round(flops, 0)
-            rec["flops_per_qdof"] = round(flops / n_dofs, 1)
-            rec["mfu"] = round(fps / peak, 4)
-        except Exception as exc:  # cost analysis is best-effort
-            rec["mfu_error"] = str(exc)[:120]
-
-    # ---- whole-substep HBM roofline (the binding denominator for a
-    # VPU/HBM-bound stencil code; VERDICT r3 weak #5).  Bytes moved per
-    # substep = analytic DMA traffic of the fused Pallas kernels (center
-    # blocks + halo windows with their reload factors + output tiles,
-    # from pallas_step.TRAFFIC_LOG — the halo terms are upper bounds, see
-    # the TRAFFIC_LOG doc) + the XLA glue between kernels (cost-analysis
-    # "bytes accessed" of the full step minus the custom calls' flat
-    # operand/result footprint, which the analytic number replaces).
-    # Denominator: v5e HBM ~819 GB/s.
-    if os.environ.get("BENCH_ROOFLINE", "1") != "0" and backend == "pallas":
-        try:
-            from ryujin_tpu.solver import pallas_step as _ps
-
-            _ps.TRAFFIC_LOG = log = []
-            # a FRESH function object: jax's tracing cache keys on
-            # function equality and bound methods compare equal, so a
-            # cached trace would skip the trace-time traffic accounting
-            compiled = jax.jit(
-                lambda *a: ti._advance_impl(*a)
-            ).lower(
-                hm.stencil, ti._parrays(), out[0], out[2],
-                jnp.asarray(jnp.inf, dtype), 1,
-            ).compile()
-            _ps.TRAFFIC_LOG = None
-            kern_dma = sum(b for _, b, _ in log)
-            kern_flat = sum(f for _, _, f in log)
-            costp = compiled.cost_analysis()
-            if isinstance(costp, (list, tuple)):
-                costp = costp[0]
-            glue = max(float(costp.get("bytes accessed", 0.0)) - kern_flat,
-                       0.0)
-            per_sub = (kern_dma + glue) / substeps_per_step
-            hbm_peak = float(os.environ.get("BENCH_HBM_GBPS", "819")) * 1e9
-            substeps_per_s = mqs * 1e6 / n_dofs
-            rec["hbm_gb_per_substep"] = round(per_sub / 1e9, 4)
-            rec["hbm_roofline_frac"] = round(
-                per_sub * substeps_per_s / hbm_peak, 4
-            )
-            by_kernel = {}
-            for name, b, _ in log:
-                name = "pk1" if name == "<lambda>" else name
-                by_kernel[name] = by_kernel.get(name, 0.0) + b
-            rec["hbm_gb_per_substep_by_kernel"] = {
-                k: round(v / substeps_per_step / 1e9, 4)
-                for k, v in sorted(by_kernel.items())
-            }
-            rec["hbm_gb_per_substep_glue"] = round(
-                glue / substeps_per_step / 1e9, 4
-            )
-        except Exception as exc:  # best-effort
-            rec["hbm_roofline_error"] = str(exc)[:120]
-
+    cost = (
+        jax.jit(substep).lower(out[0], jnp.zeros((), dtype)).compile()
+        .cost_analysis()
+    )
+    if isinstance(cost, (list, tuple)):
+        cost = cost[0]
+    flops = float(cost.get("flops", 0.0))
+    fps = flops * mqs * 1e6 / n_dofs  # flops/substep * substeps/s
+    rec["flops_per_substep"] = round(flops, 0)
+    rec["flops_per_qdof"] = round(flops / n_dofs, 1)
+    rec["fp32_peak_share"] = round(fps / peak["fp32_flops"], 4)
+    rec["peak_source"] = peak["source"]
     print(json.dumps(rec))
 
 

@@ -1,11 +1,11 @@
-"""ryujin_tpu: a TPU-native framework for hyperbolic systems of
-conservation laws with the capabilities of conservation-laws/ryujin.
+"""ryujin_tpu: a JAX framework for hyperbolic systems of conservation
+laws with the capabilities of conservation-laws/ryujin.
 
-Compute path: JAX/XLA (+ fused Pallas kernels) over padded ELL stencils
-or structured lattice canvases (2D/3D, periodic via ghost bands).
-Multi-chip: slab-decomposed canvases sharded over a jax.sharding.Mesh —
-kernels run per-device under shard_map, halo exchange travels as
-collective-permute (parallel/sharding.py).
+Compute path: JAX/XLA over padded ELL stencils or structured lattice
+canvases (2D/3D, periodic via ghost bands).  Several devices: the node
+axis of the state and of every stencil array is sharded over a
+jax.sharding.Mesh and GSPMD inserts the halo exchange
+(parallel/sharding.py).
 """
 
 __version__ = "0.1.0"

@@ -15,8 +15,8 @@ import sys
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="ryujin_tpu",
-        description="TPU-native invariant-domain-preserving solver for "
-        "hyperbolic systems of conservation laws",
+        description="Invariant-domain-preserving solver for hyperbolic "
+        "systems of conservation laws",
     )
     parser.add_argument("config", nargs="?", default="ryujin.yaml",
                         help="YAML configuration file")
@@ -41,6 +41,9 @@ def main(argv=None):
 
     cfg = Config.load(args.config)
     from .driver import TimeLoop
+    from .utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     loop = TimeLoop(cfg)
     print(f"[ryujin_tpu] equation: {cfg.equation.equation}, "

@@ -1,12 +1,13 @@
 """Typed runtime configuration tree.
 
-TPU-native analog of the reference's dealii::ParameterAcceptor `.prm`
-system (/root/reference/source/time_loop.template.h:28-215 and the
-per-class parameter registrations): one YAML file with sections mirroring
+Analog of the reference's dealii::ParameterAcceptor `.prm` system
+(/root/reference/source/time_loop.template.h:28-215 and the per-class
+parameter registrations): one YAML file with sections mirroring
 the reference's `A - TimeLoop` ... `K - Quantities` structure.  Free-form
 subsections (equation parameters, geometry parameters, initial state
 parameters) stay dicts so each module can register what it needs —
-the analog of ParameterAcceptor's late binding.
+the analog of ParameterAcceptor's late binding.  Files are read and
+written by utils/yaml_subset.py, so no YAML library is needed.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
 
-import yaml
+from .utils import yaml_subset
 
 
 @dataclasses.dataclass
@@ -185,7 +186,9 @@ class Config:
         default_factory=MeshAdaptorConfig
     )
     precision: str = "float64"  # or "float32"
-    backend: str = "auto"  # "auto" | "xla" | "pallas"
+    # the substep is always the XLA path; "auto" is kept so that older
+    # configuration files still load:
+    backend: str = "auto"  # "auto" | "xla"
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -208,13 +211,31 @@ class Config:
                 setattr(cfg, f.name, type(cur)(**v))
             else:
                 setattr(cfg, f.name, v)
+        cfg.validate()
         return cfg
+
+    def validate(self) -> None:
+        """Reject values with no implementation behind them."""
+        if self.precision not in ("float32", "float64"):
+            raise ValueError(
+                f"precision must be 'float32' or 'float64', not "
+                f"{self.precision!r}"
+            )
+        if self.backend not in ("auto", "xla"):
+            raise ValueError(
+                f"backend {self.backend!r} is not available: the fused "
+                f"kernels of the 'pallas' backend have been removed; use "
+                f"'auto' or 'xla'"
+            )
 
     @staticmethod
     def load(path: str) -> "Config":
         with open(path) as f:
-            return Config.from_dict(yaml.safe_load(f) or {})
+            return Config.from_dict(yaml_subset.load(f.read()) or {})
+
+    def dumps(self) -> str:
+        return yaml_subset.dump(self.to_dict())
 
     def save(self, path: str) -> None:
         with open(path, "w") as f:
-            yaml.safe_dump(self.to_dict(), f, sort_keys=False)
+            f.write(self.dumps())

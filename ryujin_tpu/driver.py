@@ -1,6 +1,6 @@
 """Top-level time loop driver.
 
-TPU-native re-design of /root/reference/source/time_loop.template.h:219-435:
+Re-design of /root/reference/source/time_loop.template.h:219-435:
 construct the full object graph from a Config, interpolate or resume the
 initial state, then advance in device-resident chunks between "timer
 ticks" at which output, checkpointing, quantities accumulation, and
@@ -107,12 +107,11 @@ class TimeLoop:
     """Constructs the object graph and runs the main loop."""
 
     def __init__(self, config: Config):
+        config.validate()
         self.config = config
+        self.dtype = _enable_precision(config.precision)
         self.eq = make_equation(config.equation)
         self.mesh = make_mesh(config)
-        self.dtype = (
-            jnp.float32 if config.precision == "float32" else jnp.float64
-        )
 
         ma = config.mesh_adaptor
         self.mesh_adaptor = None
@@ -156,10 +155,7 @@ class TimeLoop:
             ansatz == "cG Q1"
             or self.offline_data.node_lattice_index is not None
         )
-        on_tpu_f32 = (
-            jax.default_backend() == "tpu" and self.dtype == jnp.float32
-        )
-        mb_env = on_tpu_f32 or os.environ.get("RYUJIN_MULTIBLOCK") == "1"
+        mb_env = os.environ.get("RYUJIN_MULTIBLOCK") == "1"
         multiblock_ok = (
             not structured_ok
             and ansatz == "cG Q1"
@@ -177,23 +173,17 @@ class TimeLoop:
             and self.mesh.extrusion_base.periodic_pairs is None
             and mb_env
         )
-        if structured_ok and (self.mesh.dim <= 2 or on_tpu_f32):
-            # 3D canvases carry extra minor-axis padding, so under the XLA
-            # (CPU/verification) path ELL is the better 3D layout; on TPU
-            # the fused Pallas kernels need the canvas.
-            from .solver.pallas_step import pallas_default_margin
-
+        if structured_ok and self.mesh.dim <= 2:
+            # 3D canvases carry extra padding, so ELL is the 3D layout.
+            # Which layout wins on the H100 is not measured yet.
             self.packed = structured.pack_structured(
-                self.offline_data, self.mesh,
-                margin=pallas_default_margin(
-                    self.eq, self.mesh.dim, ansatz
-                ),
+                self.offline_data, self.mesh
             )
         elif multiblock_ok:
             # block-decomposable quilts (airfoil, disk, annulus, cylinder
             # "blocks", gmsh imports of multi-block meshes) pack onto a
-            # multi-block canvas and run the fused Pallas kernels; truly
-            # irregular meshes fall back to padded ELL:
+            # multi-block canvas; truly irregular meshes fall back to
+            # padded ELL:
             from .offline import multiblock
 
             try:
@@ -214,20 +204,7 @@ class TimeLoop:
         else:
             self.packed = ell.pack(self.offline_data)
 
-        backend = config.backend
-        if backend == "auto":
-            from .solver.pallas_step import pallas_supports
-
-            backend = (
-                "pallas"
-                if (
-                    on_tpu_f32
-                    and isinstance(self.packed, structured.StructuredData)
-                    and pallas_supports(self.packed)
-                )
-                else "xla"
-            )
-        self.backend = backend
+        self.backend = "xla"
 
         init = make_initial_state(self.eq, config.initial_values)
         initial_precomputed = None
@@ -249,7 +226,7 @@ class TimeLoop:
         )
         self.hyperbolic_module = HyperbolicModule(
             self.eq, self.packed, self.initial_state_fn,
-            params=params, dtype=self.dtype, backend=backend,
+            params=params, dtype=self.dtype,
             initial_precomputed=self._initial_precomputed,
         )
         # parabolic subsystem (navier stokes):
@@ -300,7 +277,7 @@ class TimeLoop:
             self.parabolic_solver = ParabolicSolver(
                 self.eq, system, self.packed, self.offline_data, self.mesh,
                 self.initial_state_fn,
-                self.hyperbolic_module._xla_stencil, dtype=self.dtype,
+                self.hyperbolic_module.stencil, dtype=self.dtype,
                 tolerance=ps_cfg.tolerance,
                 max_iterations=ps_cfg.max_iterations,
                 gmg_params=gmg_params, mesh_chain=mesh_chain,
@@ -317,16 +294,9 @@ class TimeLoop:
         )
 
         v_cfg = config.vtu_output
-        # the postprocessor needs an XLA-capable stencil for gradients:
-        from .solver.hyperbolic import StructuredStencil, _stencil_from_ell
-
-        if isinstance(self.packed, structured.StructuredData):
-            pp_stencil = StructuredStencil.from_data(self.packed, self.dtype)
-        else:
-            pp_stencil = _stencil_from_ell(self.packed, self.dtype)
         self.postprocessor = Postprocessor(
             eq=self.eq,
-            stencil=pp_stencil,
+            stencil=self.hyperbolic_module.stencil,
             schlieren_beta=v_cfg.schlieren_beta,
             schlieren_quantities=tuple(v_cfg.schlieren_quantities),
             vorticity_quantities=tuple(v_cfg.vorticity_quantities),
@@ -362,15 +332,11 @@ class TimeLoop:
         """Rank-0 logfile `basename.log` with the effective parameter dump,
         plus `basename-parameters.yaml` (time_loop.template.h:229-232,
         910-913)."""
-        import yaml
-
         cfg = self.config.time_loop
         self._logfile = open(cfg.basename + ".log", "a" if resume else "w")
         self._log("# ryujin_tpu")
         self._log("# effective parameters:")
-        for line in yaml.safe_dump(
-            self.config.to_dict(), sort_keys=False
-        ).splitlines():
+        for line in self.config.dumps().splitlines():
             self._log("#   " + line)
         self.config.save(cfg.basename + "-parameters.yaml")
 
@@ -569,6 +535,19 @@ class TimeLoop:
             print("  per-phase timers:")
             for name, (total, count) in sorted(stats.items()):
                 print(f"    {name:<40s} {total:9.3f} s  ({count}x)")
+
+
+def _enable_precision(precision: str):
+    """The state dtype for `precision`.  float64 needs JAX's 64-bit mode;
+    without it every array would silently be float32, so it is switched
+    on here, and a build whose float64 still comes out float32 fails."""
+    if precision == "float32":
+        return jnp.float32
+    jax.config.update("jax_enable_x64", True)
+    if jnp.zeros((), jnp.float64).dtype != jnp.float64:
+        raise RuntimeError("precision float64 requested but JAX's 64-bit "
+                           "mode could not be enabled")
+    return jnp.float64
 
 
 def _substeps_per_step(ti: TimeIntegrator) -> int:

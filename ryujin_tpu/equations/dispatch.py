@@ -1,6 +1,6 @@
 """Equation registry and dispatch.
 
-TPU-native analog of /root/reference/source/equation_dispatch.h:33-159:
+Analog of /root/reference/source/equation_dispatch.h:33-159:
 each equation module registers a builder under its configuration name;
 the driver selects by the `equation` string of the config file.
 """

@@ -1,6 +1,6 @@
 """Compressible Euler equations with polytropic gas EOS.
 
-TPU-native re-implementation of the reference Euler module:
+Re-implementation of the reference Euler module:
   * state transforms / derived quantities:
       /root/reference/source/euler/hyperbolic_system.h:740-1306
   * approximate Riemann solver (Guermond-Popov two-rarefaction bound):
@@ -11,12 +11,10 @@ TPU-native re-implementation of the reference Euler module:
     with quadratic Newton):
       /root/reference/source/euler/limiter.h + limiter.template.h
 
-Layout convention (TPU-critical): the COMPONENT axis comes FIRST and the
-(large) node axis LAST — states are [C, ...batch] with components
-[rho, m_1..m_dim, E].  On TPU the minormost array dimension maps to the
-128-lane vector axis; putting the huge node dimension there keeps every
-elementwise kernel at full lane utilization, whereas component-last
-layouts pad 4-wide vectors to 128 lanes (32x waste).  All functions
+Layout convention: the COMPONENT axis comes FIRST and the (large) node
+axis LAST — states are [C, ...batch] with components [rho, m_1..m_dim,
+E], so the contiguous axis is the long one and elementwise work on it is
+unit-stride.  All functions
 broadcast over arbitrary trailing batch axes ([n], [K, n], ...) and
 contain no loops — the solver maps them over edge/node arrays and lets
 XLA fuse.
@@ -48,7 +46,7 @@ def _pow(x, e: float):
 
     For gamma = 1.4 the two-rarefaction exponent 2 gamma / (gamma - 1)
     evaluates to 7 + O(eps); the transcendental pow dominates the Riemann
-    solver's VPU cost on TPU, and the reference's SIMD pow is likewise
+    solver's arithmetic, and the reference's SIMD pow is likewise
     approximate (simd_fast_pow.template.h), so snapping the exponent to
     the nearest integer is within the method's accuracy."""
     er = round(e)
@@ -95,9 +93,6 @@ class Euler:
     have_high_order_flux = False
     have_source_terms = False
     have_equilibrated_states = False
-    # flux tensor is a node-local function of U alone: Pallas kernels may
-    # hoist it to a per-window precompute (solver/pallas_step.py)
-    hoist_node_flux = True
     # lambda_max(U_i, U_j, n) == lambda_max(U_j, U_i, -n) exactly (the
     # two-rarefaction p* and the failsafe are symmetric under the swap),
     # so the solver may evaluate one direction per undirected edge and
@@ -239,8 +234,6 @@ class Euler:
         p = self.pressure(U)
         E = self.total_energy(U)
         v = m * rho_inv[None]
-        # explicit row construction (no broadcasted eye: small-array
-        # reshapes don't lower inside Pallas TPU kernels):
         rows = [m]
         for a in range(d):
             comps = [m[a] * v[b] for b in range(d)]
@@ -324,8 +317,8 @@ class Euler:
         exponent = 2.0 * g / (g - 1.0)
         p_rarefaction = p_j * _pow(num / den, exponent)
 
-        # failsafe estimate (:330-374); sqrt(x/y) as sqrt(x)*rsqrt(y) — the
-        # VPU's rsqrt avoids the divide
+        # failsafe estimate (:330-374); sqrt(x/y) as sqrt(x)*rsqrt(y) —
+        # rsqrt avoids the divide
         sqrt_2pmax = jnp.sqrt(2.0 * p_max)
         ri = rho_i * ((g + 1.0) * p_max + (g - 1.0) * p_i)
         rj = rho_j * ((g + 1.0) * p_max + (g - 1.0) * p_j)
@@ -342,7 +335,7 @@ class Euler:
         p_star_tilde = jnp.minimum(p_rarefaction, p_failsafe)
 
         # phi(p_max) (:122-149); 1/sqrt(ri/2) = sqrt(2) * rsqrt(ri)
-        sqrt2 = np.sqrt(2.0)
+        sqrt2 = float(np.sqrt(2.0))
         vi = (p_max - p_i) * (sqrt2 * ri_rsqrt)
         vj = (p_max - p_j) * (sqrt2 * rj_rsqrt)
         phi_p_max = vi + vj + u_j - u_i
@@ -426,7 +419,7 @@ class Euler:
     # ---- indicator (euler/indicator.h:187-258) --------------------------
     def indicator_alpha(
         self, U_i, prec_i, U_j, prec_j, c_ij, mask, hd_i,
-        evc_factor: float = 1.0, f_i=None, f_j=None,
+        evc_factor: float = 1.0,
     ):
         """Entropy viscosity commutator over the stencil.
 
@@ -437,18 +430,15 @@ class Euler:
         rho_i = self.density(U_i)
         rho_i_inv = 1.0 / rho_i
         d_eta_i = self.harten_entropy_derivative(U_i)
-        # (no .at[].add: scatter ops don't lower inside Pallas TPU kernels)
         d_eta_i = jnp.concatenate(
             [(d_eta_i[0] - eta_i * rho_i_inv)[None], d_eta_i[1:]], axis=0
         )
-        if f_i is None:
-            f_i = self.f(U_i)  # [C, dim, n]
+        f_i = self.f(U_i)  # [C, dim, n]
 
         eta_j = prec_j[1]
         rho_j = self.density(U_j)
         m_j = self.momentum(U_j)  # [dim, K, n]
-        if f_j is None:
-            f_j = self.f(U_j)  # [C, dim, K, n]
+        f_j = self.f(U_j)  # [C, dim, K, n]
 
         entropy_flux = (
             eta_j / rho_j - (eta_i * rho_i_inv)[None]
@@ -465,46 +455,6 @@ class Euler:
         quotient = jnp.abs(numerator) / (denominator + hd_i * jnp.abs(eta_i))
         return jnp.minimum(1.0, evc_factor * quotient)
 
-    # Slot-streaming variant of the EVC indicator: the fused Pallas
-    # kernels accumulate the stencil reduction one lattice offset at a
-    # time (left/right running sums of [n]-sized slabs) instead of
-    # materialising [K, n] neighbor stacks — identical math, K-fold
-    # smaller VMEM temporaries (solver/pallas_step.py).
-    def indicator_init(self, U_i, prec_i, f_i=None):
-        """Node-local state shared by every indicator_accum call."""
-        eta_i = prec_i[1]
-        rho_i_inv = 1.0 / self.density(U_i)
-        d_eta_i = self.harten_entropy_derivative(U_i)
-        d_eta_i = jnp.concatenate(
-            [(d_eta_i[0] - eta_i * rho_i_inv)[None], d_eta_i[1:]], axis=0
-        )
-        if f_i is None:
-            f_i = self.f(U_i)
-        return (eta_i, rho_i_inv, d_eta_i, f_i)
-
-    def indicator_accum(self, state, U_j, prec_j, f_j, c_k, mask_k):
-        """One stencil slot's (left, right) increments; shapes [.., n]."""
-        eta_i, rho_i_inv, _, f_i = state
-        eta_j = prec_j[1]
-        rho_j = self.density(U_j)
-        m_j = self.momentum(U_j)
-        left = (
-            (eta_j / rho_j - eta_i * rho_i_inv)
-            * jnp.sum(m_j * c_k, axis=0)
-            * mask_k
-        )
-        right = jnp.sum((f_j - f_i) * c_k[None], axis=1) * mask_k[None]
-        return left, right
-
-    def indicator_finalize(self, state, left, right, hd_i,
-                           evc_factor: float = 1.0):
-        eta_i, _, d_eta_i, _ = state
-        numerator = left - jnp.sum(d_eta_i * right, axis=0)
-        denominator = jnp.abs(left) + jnp.sum(jnp.abs(d_eta_i * right), axis=0)
-        quotient = jnp.abs(numerator) / (denominator + hd_i * jnp.abs(eta_i))
-        return jnp.minimum(1.0, evc_factor * quotient)
-
-    # ---- limiter --------------------------------------------------------
     def limiter_bounds(
         self,
         U_i,
@@ -574,76 +524,6 @@ class Euler:
         entropy_relaxation = relaxation_factor * (s_interp_max - s_min)
         s_min = jnp.maximum((1.0 - r_i) * s_min, s_min - entropy_relaxation)
 
-        return jnp.stack([rho_min, rho_max, s_min], axis=0)
-
-    # Slot-streaming variant of the limiter bounds (see indicator_init):
-    # the accumulators carry (rho_min, rho_max, s_min, s_interp_max,
-    # rho_relax_num, k_count) per node, seeded with the diagonal (j = i)
-    # contributions, one offset folded in per accum call.
-    def limiter_bounds_init(self, U_i, prec_i):
-        rho_i = self.density(U_i)
-        m_i = self.momentum(U_i)
-        s_i = prec_i[0]
-        return {
-            "rho_i": rho_i,
-            "m_i": m_i,
-            "rho_min": rho_i,
-            "rho_max": rho_i,
-            "s_min": s_i,
-            "s_interp_max": s_i,
-            "rho_relax_num": 2.0 * rho_i,
-            "k_count": jnp.zeros_like(rho_i),
-            "U_i": U_i,
-        }
-
-    def limiter_bounds_accum(self, st, U_j, prec_j, scaled_c_k, mask_k):
-        dtype = U_j.dtype
-        big = jnp.asarray(jnp.finfo(dtype).max, dtype)
-        rho_j = self.density(U_j)
-        m_j = self.momentum(U_j)
-        rho_ij_bar = 0.5 * (
-            st["rho_i"] + rho_j
-            + jnp.sum((st["m_i"] - m_j) * scaled_c_k, axis=0)
-        )
-        on = mask_k > 0
-        st = dict(st)
-        st["rho_min"] = jnp.minimum(
-            st["rho_min"], jnp.where(on, rho_ij_bar, big)
-        )
-        st["rho_max"] = jnp.maximum(
-            st["rho_max"], jnp.where(on, rho_ij_bar, -big)
-        )
-        st["s_min"] = jnp.minimum(st["s_min"], jnp.where(on, prec_j[0], big))
-        s_interp = self.specific_entropy(0.5 * (st["U_i"] + U_j))
-        st["s_interp_max"] = jnp.maximum(
-            st["s_interp_max"], jnp.where(on, s_interp, -big)
-        )
-        st["rho_relax_num"] = st["rho_relax_num"] + (
-            (st["rho_i"] + rho_j) * mask_k
-        )
-        st["k_count"] = st["k_count"] + mask_k
-        return st
-
-    def limiter_bounds_finalize(self, st, hd_i,
-                                relaxation_factor: float = 1.0):
-        dtype = st["rho_i"].dtype
-        rho_min, rho_max = st["rho_min"], st["rho_max"]
-        s_min = st["s_min"]
-        r_i = jnp.sqrt(hd_i)
-        if self.dim == 2:
-            r_i = jnp.sqrt(jnp.sqrt(hd_i)) ** 3
-        elif self.dim == 1:
-            r_i = jnp.sqrt(hd_i) ** 3
-        r_i = r_i * relaxation_factor
-        eps = jnp.finfo(dtype).eps
-        rho_relaxation = jnp.abs(st["rho_relax_num"]) / (
-            jnp.abs(st["k_count"] + 1.0) + eps
-        )
-        relaxation = 2.0 * relaxation_factor * rho_relaxation
-        rho_min = jnp.maximum((1.0 - r_i) * rho_min, rho_min - relaxation)
-        rho_max = jnp.minimum((1.0 + r_i) * rho_max, rho_max + relaxation)
-        entropy_relaxation = relaxation_factor * (st["s_interp_max"] - s_min)
-        s_min = jnp.maximum((1.0 - r_i) * s_min, s_min - entropy_relaxation)
         return jnp.stack([rho_min, rho_max, s_min], axis=0)
 
     def limiter_psi0(self, bounds, U):
@@ -808,7 +688,6 @@ class Euler:
         if newton_iterations == 0:
             # loop body never runs: t_l stays at t_min (limiter.template.h:143)
             return jnp.full_like(t_r, t_min), success
-        # boolean vector results fail Mosaic's scf.if legalization ->
         # carry success through the cond as 0/1 floats:
         t_l, succ_f = jax.lax.cond(
             jnp.all(psi_r0 > 0.0), skip_newton, full_newton, None

@@ -1,6 +1,6 @@
 """Compressible Euler equations with arbitrary equation of state.
 
-TPU-native re-implementation of /root/reference/source/euler_aeos/:
+Re-implementation of /root/reference/source/euler_aeos/:
   * EOS abstraction + library (polytropic gas, Noble-Abel stiffened gas,
     Jones-Wilkins-Lee, van der Waals, user function, tabulated):
       equation_of_state.h:29-189, equation_of_state_*.h
@@ -17,7 +17,7 @@ TPU-native re-implementation of /root/reference/source/euler_aeos/:
 
 Layout: component-first states [2+dim, ...], node axis last (see
 equations/euler.py).  The tabulated EOS evaluates on-device via table
-lookup — the TPU analog of the reference's EOSPAC/sesame + spline path.
+lookup — the analog of the reference's EOSPAC/sesame + spline path.
 """
 
 from __future__ import annotations
@@ -166,8 +166,9 @@ def tabulated(
 ) -> EquationOfState:
     """Tabulated EOS with on-device bilinear lookup.
 
-    TPU analog of the reference's sesame/EOSPAC + cubic-spline path
-    (equation_of_state_sesame.h, cubic_spline.h): the table lives in HBM
+    Analog of the reference's sesame/EOSPAC + cubic-spline path
+    (equation_of_state_sesame.h, cubic_spline.h): the table lives in
+    device memory
     and evaluation is a vectorized interpolation — EOSPAC itself is a
     proprietary host library and is not bundled.  For smooth 1D tabulated
     data, ryujin_tpu.utils.cubic_spline.CubicSpline provides the GSL
@@ -674,9 +675,8 @@ class EulerAEOS:
     # ---- indicator (euler_aeos/indicator.h:185-265) ----------------------------
     def indicator_alpha(
         self, U_i, prec_i, U_j, prec_j, c_ij, mask, hd_i,
-        evc_factor: float = 1.0, f_i=None, f_j=None,
+        evc_factor: float = 1.0,
     ):
-        del f_i, f_j
         gamma_min = prec_i[1]
         eta_i = prec_i[3]
         rho_i = self.density(U_i)

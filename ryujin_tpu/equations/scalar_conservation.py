@@ -1,6 +1,6 @@
 """Generic scalar conservation equation u_t + div f(u) = 0.
 
-TPU-native re-implementation of /root/reference/source/scalar_conservation/:
+Re-implementation of /root/reference/source/scalar_conservation/:
   * hyperbolic system + precomputation of (f(u), f'(u)) per direction:
       hyperbolic_system.h:200-660
   * guaranteed wavespeed bound from the regularized Roe average plus flux
@@ -244,9 +244,8 @@ class ScalarConservation:
     # ---- indicator (indicator.h:150-205) -----------------------------------
     def indicator_alpha(
         self, U_i, prec_i, U_j, prec_j, c_ij, mask, hd_i,
-        evc_factor: float = 1.0, f_i=None, f_j=None,
+        evc_factor: float = 1.0,
     ):
-        del f_i, f_j
         dim = self.dim
         u_i = self.state(U_i)  # [n]
         u_j = self.state(U_j)  # [K, n]

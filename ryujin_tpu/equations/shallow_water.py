@@ -1,6 +1,6 @@
 """Shallow water equations with bathymetry, dry states, and friction.
 
-TPU-native re-implementation of /root/reference/source/shallow_water/:
+Re-implementation of /root/reference/source/shallow_water/:
   * hyperbolic system with mollified/sharp water depth, hydrostatic
     reconstruction (star states), low/high-order flux divergences,
     affine shift, Gauckler-Manning friction source:
@@ -330,7 +330,7 @@ class ShallowWater:
         h_max = jnp.maximum(h_i, h_j)
         a_min = jnp.sqrt(g * h_min)
         a_max = jnp.sqrt(g * h_max)
-        sqrt_two = np.sqrt(2.0)
+        sqrt_two = float(np.sqrt(2.0))
         x0 = 9.0 - 4.0 * sqrt_two  # (2 sqrt(2) - 1)^2
 
         def phi(h):
@@ -372,9 +372,8 @@ class ShallowWater:
     # ---- indicator (shallow_water/indicator.h:150-240) -----------------------
     def indicator_alpha(
         self, U_i, prec_i, U_j, prec_j, c_ij, mask, hd_i,
-        evc_factor: float = 1.0, f_i=None, f_j=None,
+        evc_factor: float = 1.0,
     ):
-        del f_i, f_j
         eta_i = prec_i[0]
         d_eta_i = self.mathematical_entropy_derivative(U_i)  # [C, n]
         f_i = self.f(U_i)  # [C, dim, n]

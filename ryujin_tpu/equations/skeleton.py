@@ -1,6 +1,6 @@
 """Skeleton equation module: the minimal "Description" surface.
 
-TPU-native analog of /root/reference/source/skeleton/ — a template for
+Analog of /root/reference/source/skeleton/ — a template for
 adding new equations.  It documents every hook the solver core calls:
 
   structure:   n_comp, n_precomputed, n_initial_precomputed,
@@ -78,7 +78,7 @@ class Skeleton:
                         U_i.dtype)
 
     def indicator_alpha(self, U_i, prec_i, U_j, prec_j, c_ij, mask, hd_i,
-                        evc_factor=1.0, f_i=None, f_j=None):
+                        evc_factor=1.0):
         return jnp.zeros(U_i.shape[1:], U_i.dtype)
 
     def limiter_bounds(self, U_i, prec_i, U_j, prec_j, scaled_c_ij, mask,

@@ -1,6 +1,6 @@
 """Checkpoint / resume.
 
-TPU-native analog of TimeLoop::write_checkpoint / read_checkpoint
+Analog of TimeLoop::write_checkpoint / read_checkpoint
 (/root/reference/source/time_loop.template.h:440-611): the reference
 serializes each state component through SolutionTransfer attached to the
 p4est triangulation plus a boost metadata archive AND saves the

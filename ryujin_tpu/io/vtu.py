@@ -1,6 +1,6 @@
 """Minimal VTU (VTK XML unstructured grid) writer.
 
-TPU-native analog of /root/reference/source/vtu_output.template.h: writes
+Analog of /root/reference/source/vtu_output.template.h: writes
 the conserved components, primitive components, selected precomputed
 fields, the indicator alpha, and postprocessor fields as point data over
 the Q1 mesh.  Pure-python ascii/base64 writer — no VTK dependency.

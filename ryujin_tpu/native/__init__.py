@@ -1,12 +1,16 @@
 """Native (C++) components of ryujin_tpu.
 
 The reference implements its entire offline pipeline in C++
-(/root/reference/source/offline_data.template.h); here the TPU compute
-path is JAX/Pallas, and the host-side offline assembly is C++ compiled
-on first use (ctypes ABI — no pybind11 in this environment).
+(/root/reference/source/offline_data.template.h); here the device compute
+path is JAX, and the host-side offline assembly is C++ compiled on first
+use (ctypes ABI, no pybind11 needed).
 
-Build artifacts are cached under ``_cache/`` keyed by a source hash;
-set ``RYUJIN_TPU_NO_NATIVE=1`` to force the pure-numpy fallbacks.
+Build artifacts are cached under ``_cache/``, keyed by the sources, the
+compiler command and the host architecture, so a checkout copied to
+another machine never loads a library built for a different one.  The
+build targets the generic instruction set of the architecture (no
+``-march=native``).  Set ``RYUJIN_TPU_NO_NATIVE=1`` to force the
+pure-numpy fallbacks.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import sys
 import threading
@@ -25,23 +30,29 @@ _SOURCES = ["assembly.cc"]
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_BUILD_CMD = ("g++", "-O3", "-std=c++20", "-shared", "-fPIC")
+
+
+def _lib_tag(sources, cmd=_BUILD_CMD, machine=None) -> str:
+    """Cache key of the built library: source bytes, compiler command and
+    host architecture (``platform.machine()``)."""
+    h = hashlib.sha256()
+    for s in sources:
+        h.update(Path(s).read_bytes())
+    h.update("\0".join(cmd).encode())
+    h.update((machine or platform.machine()).encode())
+    return h.hexdigest()[:16]
 
 
 def _build() -> Optional[ctypes.CDLL]:
     srcs = [_HERE / s for s in _SOURCES]
-    h = hashlib.sha256()
-    for s in srcs:
-        h.update(s.read_bytes())
-    tag = h.hexdigest()[:16]
+    tag = _lib_tag(srcs)
     cache = _HERE / "_cache"
     cache.mkdir(exist_ok=True)
     so = cache / f"libryujin_native_{tag}.so"
     if not so.exists():
         tmp = so.with_suffix(f".building-{os.getpid()}.so")
-        cmd = [
-            "g++", "-O3", "-march=native", "-std=c++20", "-shared",
-            "-fPIC", "-o", str(tmp),
-        ] + [str(s) for s in srcs]
+        cmd = list(_BUILD_CMD) + ["-o", str(tmp)] + [str(s) for s in srcs]
         try:
             subprocess.run(
                 cmd, check=True, capture_output=True, text=True, timeout=300

@@ -1,6 +1,6 @@
 """Q1 finite element assembly of the offline data.
 
-TPU-native re-design of /root/reference/source/offline_data.template.h:419-1105.
+Re-design of /root/reference/source/offline_data.template.h:419-1105.
 The reference assembles, once per mesh,
 
   * the consistent mass matrix  m_ij = ∫ φ_i φ_j dx,
@@ -15,7 +15,7 @@ The reference assembles, once per mesh,
 using cell-wise quadrature (QGauss(2) per direction for the Q1 ansatz,
 discretization.template.h:165).  Here everything is assembled with fully
 vectorized NumPy over all cells at once and returned as a CSR-like graph
-that ell.py packs into TPU-friendly padded ELL arrays.
+that ell.py packs into padded ELL arrays.
 
 DEBUG-mode consistency checks of the reference
 (offline_data.template.h:1002-1104: Σm_i = |Ω|, zero row sums, symmetry of

@@ -1,11 +1,11 @@
-"""Pack the assembled node graph into TPU-friendly padded ELL arrays.
+"""Pack the assembled node graph into padded ELL arrays.
 
 The reference stores the stencil in a SIMD-blocked CSR (SparseMatrixSIMD,
-/root/reference/source/sparse_matrix_simd.h:40-297).  On TPU the idiomatic
-layout is a dense padded ELL: every node carries exactly K off-diagonal
+/root/reference/source/sparse_matrix_simd.h:40-297).  Here the layout is a
+dense padded ELL: every node carries exactly K off-diagonal
 neighbor slots (K = max stencil size, e.g. 8 for Q1 in 2D); unused slots are
 masked self-loops with zero coefficients.  All per-edge data (c_ij, m_ij)
-lives in [n_pad, K, ...] arrays so the hot kernels become pure gathers +
+lives in [n_pad, K, ...] arrays so the hot loops become pure gathers +
 vectorized math with static shapes.
 
 The transposed-edge permutation (needed for d_ji / l_ji access, cf.
@@ -74,7 +74,7 @@ def _locality_order(data: SparseOfflineData, real: np.ndarray) -> np.ndarray:
 
     Mirrors the intent of the reference's Cuthill-McKee pass
     (offline_data.template.h:186-416) — neighbors end up close in memory so
-    TPU gathers over the ELL arrays hit nearby HBM lines.
+    device gathers over the ELL arrays hit nearby memory lines.
     """
     try:
         import scipy.sparse as sp

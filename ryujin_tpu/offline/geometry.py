@@ -2,7 +2,7 @@
 
 Mirrors the geometry library of the reference
 (/root/reference/source/geometry_library.h:35 and geometry_*.h) with
-TPU-friendly host-side NumPy mesh construction:
+host-side NumPy mesh construction:
 
   * ``rectangular domain``  (geometry_rectangular_domain.h)
   * ``step``                (geometry_step.h:163, Mach-3 forward facing step)
@@ -537,9 +537,9 @@ def cylinder_ogrid(
     closed boundary curves), with the four channel corners snapped onto
     grid lines so the domain is the exact rectangle.  theta is the
     periodic minor lattice axis, so the structured backend packs the mesh
-    onto a canvas whose lane wrap IS the periodic identification
-    (offline/structured.py) — the whole benchmark then runs the fused
-    Pallas kernels instead of the gather-based ELL fallback.
+    onto a canvas whose minor-axis wrap IS the periodic identification
+    (offline/structured.py) — the whole benchmark then runs the shift
+    stencil instead of the gather-based ELL fallback.
 
     Radial spacing is graded per ray: geometric growth starting from the
     surface azimuthal spacing (near-isotropic cells at the cylinder,
@@ -668,7 +668,7 @@ def cylinder(
     spacing so cells stay near-cubic.
 
     variant "ogrid" (default): single logically-structured O-grid
-    (cylinder_ogrid) — canvas-packable, runs the fused Pallas fast path.
+    (cylinder_ogrid) — canvas-packable in 2D.
     variant "blocks": the reference-style block construction — a square
     ring graded onto the circle embedded in a rectangular channel lattice
     (unstructured; ELL fallback).

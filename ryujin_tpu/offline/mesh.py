@@ -1,6 +1,6 @@
 """Host-side quadrilateral/hexahedral mesh representation.
 
-TPU-native re-design of the mesh layer of conservation-laws/ryujin.  The
+Re-design of the mesh layer of conservation-laws/ryujin.  The
 reference delegates meshing to deal.II triangulations (see
 /root/reference/source/discretization.h:131-173 and geometry_*.h); here we
 keep a minimal, fully vectorized NumPy mesh container that supports
@@ -19,7 +19,7 @@ coordinate toggles with stride 2**d, i.e. in 2D
     v0 --- v1
 
 All offline data (mass matrices, c_ij, boundary maps) is assembled from this
-container in assembly.py; nothing here ever runs on the TPU.
+container in assembly.py; nothing here runs on the device.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """AMR driver: adaptation / marking / time-point selection strategies.
 
-The TPU-native analog of the reference's MeshAdaptor
+The analog of the reference's MeshAdaptor
 (/root/reference/source/mesh_adaptor.h:22-160, mesh_adaptor.template.h) and
 of the TimeLoop's adapt_mesh_and_transfer_state_vector
-(time_loop.template.h:616-689).  On TPU, mesh adaptation is a host-side
+(time_loop.template.h:616-689).  Here mesh adaptation is a host-side
 event: the mesh is locally refined (offline/mesh.py refine_local, which
 enforces 2:1 balance and records hanging-node constraints), offline data is
 re-assembled and re-packed, the solution is transferred through the Q1

@@ -4,11 +4,8 @@ quad meshes.
 The reference's "unstructured" production geometries — the airfoil C-type
 blocking (geometry_airfoil.h:823-1416), the cylinder block construction
 (geometry_cylinder.h:62-144), disk, annulus, wall — are all quilts of
-logically-structured patches glued along conforming interfaces.  The
-TPU-native consequence: instead of falling back to gather-based ELL
-(measured: XLA HBM gathers reach ~15 Mnode/s on v5e, and Mosaic's
-in-kernel dynamic_gather is restricted to single-vreg extents —
-scripts/probe_gather.py), we
+logically-structured patches glued along conforming interfaces.
+Instead of falling back to gather-based ELL, we
 
   1. recover the block structure automatically from the cell graph (BFS
      propagation of integer lattice coordinates with D4 orientation
@@ -16,8 +13,7 @@ scripts/probe_gather.py), we
   2. pack every block onto a shared canvas (stacked along the major axis)
      with a one-cell ghost ring around each block,
   3. resolve every cross-block stencil edge onto a ghost-ring cell so the
-     fused Pallas kernels (solver/pallas_step.py) and the XLA shift
-     stencil see a plain lattice everywhere, and
+     shift stencil sees a plain lattice everywhere, and
   4. emit runtime *refresh maps*: small gather/scatter index pairs that
      copy owner values into ghost cells (gmap_node, node arrays) and
      owner edge slots into ghost-ring slots in the reader block's frame
@@ -45,7 +41,8 @@ blocks) pack fully; locally-refined (AMR) meshes with hanging-node
 constraints pack with O(interface) side rows — closing the throughput
 cliff the ELL fallback would otherwise be (the reference runs one
 uniform CSR loop for every mesh, hyperbolic_module.template.h:417-420;
-the canvas + side-row split is the TPU rendition).
+the canvas + side-row split is the rendition here).  Whether the
+canvas beats ELL on the H100 is not measured yet (ROADMAP Speed item 2).
 
 2D bases: the reference's multi-block geometries are 2D; their 3D
 variants are z-extrusions.  An extrusion whose 2D base is itself a
@@ -406,9 +403,7 @@ def pack_multiblock(
     device mesh along axis 0 — the multi-block rendition of the
     reference's layout-agnostic MPI decomposition (every mesh, not just
     lattices: offline_data.h:136-169, sparse_matrix_simd.h:651-771).
-    Cross-block refresh maps keep GLOBAL canvas indices; the runtime
-    splits them into slab-local and cross-slab sets (solver/pallas_step
-    sharded gmap exchange).
+    Cross-block refresh maps keep GLOBAL canvas indices.
     """
     if data.dim != 2:
         raise MultiblockError("multi-block packing is 2D only")
@@ -443,7 +438,7 @@ def pack_multiblock(
     # ------------------------------------------------------------------
     # Canvas layout: blocks shelf-packed (side by side within row bands,
     # shelves stacked along axis 0), each block with a 1-cell ghost ring;
-    # global masked margin bands top/bottom for the Pallas halo windows.
+    # global masked margin bands top/bottom.
     # The canvas width is chosen among pad_minor multiples to minimize
     # total area (a lone narrow block in a wide canvas wastes rows).
     # ------------------------------------------------------------------
@@ -585,7 +580,7 @@ def pack_multiblock(
     if bad.any():
         # Extraordinary vertices: rows whose full stencil cannot embed in
         # their canvas 8-neighborhood (block corners of valence != 4).
-        # Their rows are computed OUTSIDE the canvas kernels on a small
+        # Their rows are computed OUTSIDE the canvas phases on a small
         # side ELL stencil (StructuredData.ev_side, solver/hyperbolic.py
         # Sideband) — the reference's uniform CSR treats them for free
         # (sparse_matrix_simd.h); here they cost O(#EV) XLA work per
@@ -851,7 +846,7 @@ def _assemble_canvas(
     # --- extraordinary-vertex side stencil --------------------------------
     # Rows whose stencil exceeds the canvas 8-neighborhood are computed
     # on a tiny ELL stencil in XLA (solver/hyperbolic.py Sideband) and
-    # scattered back after each kernel phase.  Recorded here: the side
+    # scattered back after each phase.  Recorded here: the side
     # ELL arrays (neighbor OWNER cells, so gathers always read real
     # values), the transposed-edge gather entries into the flat [K * n]
     # canvas edge layout, and the scatter targets where readers'
@@ -975,8 +970,8 @@ def _assemble_canvas(
     # route's read entry (K-1-k, q) — each such entry has exactly ONE
     # consumer (the broken route itself: q is a ghost/masked cell, and
     # the route's (k', q) |-> (k, p) correspondence is bijective), so
-    # the downstream d reconstruction (kernel _d_win_sym / the XLA roll
-    # transpose) needs no other change and block interiors keep the
+    # the downstream d reconstruction (the roll transpose) needs no
+    # other change and block interiors keep the
     # half-slot evaluation at full speed.
     K2 = K // 2
     edge_at = np.full(K * n_pad, -1, dtype=np.int64)  # owner rows
@@ -1216,8 +1211,7 @@ def _z_line_factors(mesh3, L: int, periodic_z: bool):
     to layer l + (k - 1) (mass / derivative integral), zero where no
     neighbor exists.  For a uniform planar extrusion the trilinear hex
     integrals factor EXACTLY into (2D quad integral) x (these 1D
-    factors) — the same separability offline/separable.py exploits for
-    lattice extrusions."""
+    factors)."""
     from .assembly import assemble as _assemble
     from . import geometry as _geometry
     from .mesh import Boundary
@@ -1271,10 +1265,8 @@ def pack_multiblock_extruded(
     cG Q1 only; extrusions with EV side rows are rejected (none of the
     reference's extruded geometries have them).
 
-    margin_z defaults to 2 = the z-slab kernels' default tile depth TD
-    (solver/pallas_step._tile_d_default) — the kernels need z margins of
-    at least TD planes, and on shallow extrusions (the 16-layer airfoil)
-    an 8-plane band would pad the canvas by another 1.33x.
+    margin_z: masked z planes on each side (default 2; the shift
+    stencil needs at least 1).
     """
     base = mesh3.extrusion_base
     if base is None or mesh3.extrusion_layers is None:

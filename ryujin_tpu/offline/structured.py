@@ -1,26 +1,25 @@
 """Pack the assembled node graph onto a structured lattice canvas.
 
-TPU-native alternative to the padded-ELL layout (ell.py): when the mesh is a
-tensor lattice (possibly with holes, e.g. the forward-facing step), every
-node sits at a lattice position and the Q1 stencil is exactly the set of
+Alternative to the padded-ELL layout (ell.py): when the mesh is a tensor
+lattice (possibly with holes, e.g. the forward-facing step), every node
+sits at a lattice position and the Q1 stencil is exactly the set of
 lattice neighbors at offsets {-1,0,1}^dim.  Neighbor access then becomes a
-*static shift* of a [H, W] (2D) canvas instead of a gather — on TPU this
-compiles to fused slice/concat at HBM bandwidth, whereas irregular gathers
-serialize.  This is the structured analog of the reference's SIMD-blocked
-CSR (sparse_matrix_simd.h:40-297): the reference pays bookkeeping for
-stride-uniform rows; the lattice makes every row uniform by construction.
+*static shift* of a [H, W] (2D) canvas instead of a gather (slice/concat,
+unit-stride).  This is the structured analog of the reference's
+SIMD-blocked CSR (sparse_matrix_simd.h:40-297): the reference pays
+bookkeeping for stride-uniform rows; the lattice makes every row uniform
+by construction.  Whether the canvas beats ELL on the H100 is not
+measured yet (ROADMAP Speed item 2).
 
-Lattice positions without a node (removed cells, padding added for TPU tile
-alignment) are masked: their edge masks are zero and their states are held
-at a safe constant.  Canvas dims of non-periodic axes are padded to TPU
-friendly multiples.  A periodic minor (x) axis whose period is a multiple
-of 128 keeps its exact width — the wrap-around of the shift *is* the
-periodic identification; otherwise it is padded to a lane-aligned width
-with two ghost columns realizing the identification on the padded canvas
-(StructuredData.minor_wrap), keeping the compiled Pallas kernels
-available.  Periodic leading axes get ghost bands instead (see
-StructuredData.ghosts) so that neither the shifts nor the Pallas halo
-windows ever wrap.
+Lattice positions without a node (removed cells, padding) are masked:
+their edge masks are zero and their states are held at a safe constant.
+Canvas dims of non-periodic axes are padded to multiples of pad_major /
+pad_minor.  A periodic minor (x) axis whose period is a multiple of
+pad_minor keeps its exact width — the wrap-around of the shift *is* the
+periodic identification; otherwise it is padded with two ghost columns
+realizing the identification on the padded canvas
+(StructuredData.minor_wrap).  Periodic leading axes get ghost bands
+instead (see StructuredData.ghosts) so that the shifts never wrap.
 """
 
 from __future__ import annotations
@@ -95,8 +94,8 @@ class StructuredData:
     # [g+P, g+P+g) <- [g, 2g)).  Added for *periodic* non-minor axes so
     # the neighbor shift never has to wrap the canvas: static arrays are
     # ghost-filled at pack time, dynamic arrays must be refreshed before
-    # neighbor access (StructuredStencil.refresh_ghosts / the Pallas
-    # stepper's per-kernel refresh).  This is the SPMD rendition of the
+    # neighbor access (StructuredStencil.refresh_ghosts).  This is the SPMD
+    # rendition of the
     # reference's ghost-row layer (sparse_matrix_simd.h:651-771).
     ghosts: Tuple[Optional[Tuple[int, int]], ...] = ()
     # 1.0 at real AND ghost positions (whose *values* are valid after a
@@ -144,12 +143,12 @@ class StructuredData:
     # Extraordinary-vertex side stencil (offline/multiblock.py): rows
     # whose stencil exceeds the canvas 8-neighborhood, computed on a tiny
     # ELL stencil in XLA (solver/hyperbolic.py Sideband) and scattered
-    # back after each kernel phase.  Keys: rows, cells, cols_cell, cij,
+    # back after each phase.  Keys: rows, cells, cols_cell, cij,
     # mij, mask, cii, m_lumped, n_nbrs, trans, edst, esrc:
     ev_side: Optional[Dict[str, np.ndarray]] = None
-    # Periodic MINOR axis whose period P is not lane-aligned: the axis is
-    # padded to W (a multiple of 128) and carries two ghost columns so the
-    # minor-axis roll/lane-roll wrap still realizes the periodic
+    # Periodic MINOR axis whose period P is not a multiple of pad_minor:
+    # the axis is padded to W and carries two ghost columns so the
+    # minor-axis roll wrap still realizes the periodic
     # identification on the padded canvas: col P <- col 0 (the dx=+1
     # neighbor of col P-1) and col W-1 <- col P-1 (the dx=-1 neighbor of
     # col 0 after the roll wraps).  (P, W); None when the period is
@@ -161,7 +160,7 @@ class StructuredData:
     incidence: Optional[np.ndarray] = None
     # finite element ansatz this canvas was packed from:
     ansatz: str = "cG Q1"
-    # the minor (x) canvas axis is periodic (wrap = lane roll, or the
+    # the minor (x) canvas axis is periodic (wrap = minor roll, or the
     # minor_wrap ghost columns); column-split tilings are then invalid:
     periodic_minor: bool = False
 
@@ -296,10 +295,8 @@ def pack_structured(
     numbering of the lattice generators.
 
     margin: masked band width for the leading canvas axes — an int, or a
-    per-leading-axis tuple (slowest first).  The 2D row-tiled Pallas
-    kernels need TH(=8)-row y margins; the 3D z-slab kernels only need
-    TD(=8) planes on z and >=1 row on y (solver/pallas_step.py
-    pallas_default_margin), which cuts 3D canvas padding substantially.
+    per-leading-axis tuple (slowest first).  The shift stencil needs at
+    least the stencil reach; slab ghost bands take their width from it.
 
     slabs > 1 decomposes canvas axis 0 into `slabs` uniform ghost-banded
     slabs (StructuredData.slab_spec) so the canvas can be sharded over a
@@ -319,13 +316,12 @@ def pack_structured(
     assert (si[real].max(axis=0) < logical).all()
 
     # Canvas dims, slowest-first: (…, ny, nx).  Non-periodic leading axes
-    # get a `margin`-row masked band top and bottom so that halo windows
-    # of the fused Pallas kernels (solver/pallas_step.py) never leave the
-    # canvas for tiles containing real nodes.  PERIODIC leading axes get
+    # get a `margin`-row masked band top and bottom.  PERIODIC leading
+    # axes get
     # the same band as *ghost* rows mirroring the wrapped real rows (the
     # shift then never wraps the canvas; dynamic arrays are refreshed
     # before neighbor access).  The periodic minor (x) axis needs neither:
-    # its wrap is the lane roll itself.
+    # its wrap is the minor-axis roll itself.
     pads = [pad_major] * (dim - 1) + [pad_minor]
     canvas = []
     offs = []
@@ -345,12 +341,11 @@ def pack_structured(
         if not periodic[d] or gh is not None:
             size = _round_up(size, pads[axis] if dim > 1 else pad_minor)
         elif periodic[d] and not (dim > 1 and axis < dim - 1):
-            # periodic minor axis: a period that is already lane-aligned
-            # keeps its exact width (the lane-roll wrap IS the periodic
-            # identification); otherwise pad to a multiple of 128 and
-            # carry two ghost columns realizing the identification on the
-            # padded canvas (StructuredData.minor_wrap) so the compiled
-            # Pallas kernels stay available (pallas_supports)
+            # periodic minor axis: a period that is already a multiple
+            # of pad_minor keeps its exact width (the roll wrap IS the
+            # periodic identification); otherwise pad and carry two ghost
+            # columns realizing the identification on the padded canvas
+            # (StructuredData.minor_wrap)
             if dim > 1 and size % pad_minor:
                 W = _round_up(size, pad_minor)
                 # the 2*reach ghost columns must not collide:

@@ -5,9 +5,9 @@ The analog of the reference's simd.h pow/fast_pow family
 polynomial kernels with a selectable error *bias* so the limiter can use a
 cheap pow while staying on the conservative side of a bound.
 
-On TPU the VPU has no pow instruction either: XLA lowers jnp.power to
-exp(log), two polynomial approximations.  fast_pow replaces those with a
-single exp2(b * log2(x)) round-trip in float32 plus an optional relative
+XLA lowers jnp.power to exp(log), two transcendental approximations.
+fast_pow replaces those with a single exp2(b * log2(x)) round-trip in
+float32 plus an optional relative
 bias epsilon that guarantees fast_pow(x, b) >= pow(x, b) (Bias.max) or
 <= (Bias.min) for the argument ranges used by the limiter (x in (0, 4],
 |b| <= 8).

@@ -1,6 +1,6 @@
 """Multi-chip SPMD partitioning of the node graph.
 
-The TPU-native analog of the reference's MPI domain decomposition
+The analog of the reference's MPI domain decomposition
 (/root/reference/source/offline_data.h:136-169 and the SparseMatrixSIMD
 ghost-row exchange, sparse_matrix_simd.h:299-420): instead of explicit
 ghost layers and MPI_Isend/Irecv target lists, the node axis of the state
@@ -49,69 +49,6 @@ def shard_state(X, device_mesh, axis_name=NODE_AXIS):
     import jax
 
     return jax.device_put(X, node_sharding(device_mesh, X.ndim, axis_name))
-
-
-def shard_pallas_module(hm, device_mesh, axis_name=NODE_AXIS):
-    """Shard a pallas-backed HyperbolicModule over a 1D device mesh.
-
-    Requires the canvas to have been packed with
-    `pack_structured(..., slabs=n_devices)` (uniform ghost-banded slabs
-    of canvas axis 0, offline/structured.py slab_spec).  The fused
-    kernels then run per-device under shard_map; the XLA glue between
-    them (ghost refresh = slab-axis roll -> collective-permute, tau/ok
-    reductions -> all-reduce, boundary fixup scatter) is GSPMD-
-    partitioned.  This is the XLA-SPMD rendition of the reference's
-    overlapped MPI ghost exchange (sparse_matrix_simd.h:651-771,
-    openmp.h:141-175).
-    """
-    import dataclasses
-
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    ps = getattr(hm, "_pallas", None)
-    if ps is None or ps.slab_spec is None:
-        raise ValueError(
-            "shard_pallas_module needs a pallas backend on a canvas "
-            "packed with slabs=n_devices"
-        )
-    n_dev = device_mesh.devices.size
-    if ps.slab_spec[0] != n_dev:
-        raise ValueError(
-            f"canvas has {ps.slab_spec[0]} slabs but the mesh has "
-            f"{n_dev} devices"
-        )
-    ps.device_mesh = device_mesh
-    ps.mesh_axis = axis_name
-
-    zmajor = bool(getattr(ps, "slab3d", False))
-
-    def place(x):
-        if x is None:  # optional fields (separable factors)
-            return None
-        if x.ndim >= 2 and zmajor and x.shape[0] == 1:
-            # z-independent broadcast block (g_sep2): replicate
-            spec = P(*([None] * x.ndim))
-        elif x.ndim >= 2 and zmajor:
-            # z-major [D, planes, H, W]: the slab axis IS axis 0
-            spec = P(axis_name, *([None] * (x.ndim - 1)))
-        elif x.ndim >= 2:  # [planes, *canvas]: slab axis at axis 1
-            spec = P(None, axis_name, *([None] * (x.ndim - 2)))
-        else:  # flat [n_pad]: row-major = slab-major, same placement
-            spec = P(axis_name)
-        return jax.device_put(x, NamedSharding(device_mesh, spec))
-
-    ps.arrays = dataclasses.replace(
-        ps.arrays,
-        **{
-            f.name: place(getattr(ps.arrays, f.name))
-            for f in dataclasses.fields(ps.arrays)
-        },
-    )
-    hm.stencil = ps.arrays
-    # prepare_state_vector / postprocessing use the XLA stencil:
-    hm._xla_stencil = shard_stencil(hm._xla_stencil, device_mesh, hm.n_pad)
-    return hm
 
 
 def shard_stencil(stencil, device_mesh, n_pad: int, axis_name=NODE_AXIS):

@@ -1,6 +1,6 @@
 """Time-series statistics of quantities of interest on manifolds.
 
-TPU-native analog of /root/reference/source/quantities.template.h: the
+Analog of /root/reference/source/quantities.template.h: the
 reference accumulates space-averaged, time-averaged, and instantaneous
 primitive quantities (first and second moments) over interior and boundary
 manifolds defined by muparser level-set expressions.  Here manifolds are

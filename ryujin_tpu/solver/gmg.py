@@ -1,6 +1,6 @@
 """Geometric multigrid preconditioner for the Navier-Stokes parabolic CG.
 
-TPU-native analog of the reference's GMG-preconditioned matrix-free
+Analog of the reference's GMG-preconditioned matrix-free
 solves (navier_stokes/parabolic_solver.h:205-287 and
 parabolic_solver_gmg_operators.h: DiagonalMatrix, VelocityMatrix,
 MGTransferVelocity, EnergyMatrix, MGTransferEnergy), redesigned for

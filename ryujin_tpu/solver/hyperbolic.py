@@ -1,6 +1,6 @@
 """The hyperbolic module: graph-viscosity IDP update with convex limiting.
 
-TPU-native re-design of /root/reference/source/hyperbolic_module.template.h.
+Re-design of /root/reference/source/hyperbolic_module.template.h.
 The reference performs seven fused passes over a SIMD-blocked CSR stencil
 with overlapped MPI ghost exchange.  Here the whole update is a single
 jit-compiled dataflow graph over stencil arrays:
@@ -9,10 +9,9 @@ jit-compiled dataflow graph over stencil arrays:
            reference :96-193)
   step 2   d_ij for *all* directed edges via the approximate Riemann solver
            + indicator alpha_i (reference :341-424 computes the upper
-           triangle only and symmetrizes; on TPU recomputing both edge
-           directions is cheaper than the bookkeeping, and the
-           transpose-max automatically reproduces the boundary-pair fixup
-           of reference :461-490)
+           triangle only and symmetrizes; here each directed edge is
+           evaluated once and the transpose-max reproduces the
+           boundary-pair fixup of reference :461-490)
   step 3   d_ii = -sum_j d_ij and tau_max (reference :494-564)
   step 4   low-order update, limiter bounds, r_i, first part of P_ij
            (reference :597-884)
@@ -21,10 +20,9 @@ jit-compiled dataflow graph over stencil arrays:
   step 6/7 symmetrized l_ij, high-order updates, second limiter pass with
            the (1 - l^(1)) l^(2) shortcut (reference :1054-1182)
 
-Layout (TPU-critical, see equations/euler.py): node axis LAST, component
-and edge-slot axes first — states [C, n], edge data [K, n], [dim, K, n].
-The minormost dimension maps to the TPU's 128-lane vector axis, so the
-huge node axis must live there.
+Layout (see equations/euler.py): node axis LAST, component and edge-slot
+axes first — states [C, n], edge data [K, n], [dim, K, n].  The large
+node axis is the contiguous one, and the axis that sharding splits.
 
 The restart mechanism (invariant-domain violation -> Restart exception,
 reference :1190-1207) is functional here: step() returns an `ok` flag and
@@ -53,8 +51,7 @@ def _f(x, dtype):
 
 def _sorted_map(m):
     """(dst, src) index pair sorted by dst, as device arrays — lets the
-    ghost-refresh scatters claim unique_indices + indices_are_sorted
-    (TPU scatter is substantially cheaper with both hints)."""
+    ghost-refresh scatters claim unique_indices + indices_are_sorted."""
     dst, src = (np.asarray(a) for a in m)
     o = np.argsort(dst, kind="stable")
     return (jnp.asarray(dst[o]), jnp.asarray(src[o]))
@@ -146,7 +143,7 @@ class StructuredStencil:
 
     Node axis last, canvas-flattened.  `nbr` and `transpose_edge` reshape
     the node axis to the canvas and use jnp.roll with static shifts
-    (slice+concat on TPU — no gather).  Wrapped-in values at non-periodic
+    (slice + concat, no gather).  Wrapped-in values at non-periodic
     canvas edges correspond to masked edges; for the periodic minor axis
     the wrap is exactly the periodic identification.  Periodic LEADING
     axes instead carry ghost bands (offline/structured.py ghosts): their
@@ -174,7 +171,7 @@ class StructuredStencil:
     # over the flattened [K * n] device edge layout:
     gmap_node: Optional[Tuple[jax.Array, jax.Array]] = None
     gmap_edge: Optional[Tuple[jax.Array, jax.Array]] = None
-    # Periodic minor axis padded to a lane-aligned width: (P, W) — ghost
+    # Periodic minor axis padded to the minor padding width: (P, W) — ghost
     # cols [P, P+reach) <- [0, reach), [W-reach, W) <- [P-reach, P)
     # (StructuredData.minor_wrap):
     minor_wrap: Optional[Tuple[int, int]] = None
@@ -401,15 +398,13 @@ class StructuredStencil:
 # ---------------------------------------------------------------------------
 # Phase functions: the IDP substep split at its global synchronisation
 # points (tau reduction, F/l halo exchanges).  Each phase is pure math over
-# node-last arrays; all neighbor-gathered inputs are passed in explicitly so
-# the same code runs (a) full-canvas under XLA and (b) per-tile inside the
-# fused Pallas kernels (solver/pallas_step.py), where the caller slices
-# halo'd VMEM windows instead of calling st.nbr.
+# node-last arrays; all neighbor-gathered inputs are passed in explicitly,
+# so the same code serves the canvas and ELL layouts and the extraordinary-
+# vertex side rows.
 # ---------------------------------------------------------------------------
 
 
-def phase_e_alpha(eq, p, sa, U, prec, U_j, prec_j,
-                  rp=None, rp_j=None, f_i=None, f_j=None, half=False):
+def phase_e_alpha(eq, p, sa, U, prec, U_j, prec_j, half=False):
     """Step 2 (forward half): directed wavespeed products e_ij and alpha_i.
 
     e[k, i] = ||c_ij|| * lambda_max(U_i, U_j, n_ij).  The backward product
@@ -434,10 +429,9 @@ def phase_e_alpha(eq, p, sa, U, prec, U_j, prec_j,
     prec_i = prec[:, None]
     kw = {}
     if hasattr(eq, "riemann_precompute"):
-        # node-local (p, a) hoisted out of the per-edge Riemann solve;
-        # Pallas kernels inject window-precomputed values (rp/rp_j)
-        kw["pa_i"] = rp if rp is not None else eq.riemann_precompute(U)
-        kw["pa_j"] = rp_j if rp_j is not None else eq.riemann_precompute(U_j)
+        # node-local (p, a) hoisted out of the per-edge Riemann solve
+        kw["pa_i"] = eq.riemann_precompute(U)
+        kw["pa_j"] = eq.riemann_precompute(U_j)
     if half:
         # symmetric lambda (eq.riemann_symmetric): evaluate only the
         # first K/2 directed slots; callers rebuild the full d via
@@ -463,7 +457,7 @@ def phase_e_alpha(eq, p, sa, U, prec, U_j, prec_j,
     hd_i = sa.m_lumped * sa.measure_inv
     alpha = eq.indicator_alpha(
         U, prec, U_j, prec_j, sa.cij, sa.mask, hd_i,
-        evc_factor=p.evc_factor, f_i=f_i, f_j=f_j,
+        evc_factor=p.evc_factor,
     )
     return e, alpha
 
@@ -556,8 +550,6 @@ def _boundary_pair_data(st, dtype):
         "n_T": jnp.asarray(n_T, dtype),
         "w_fwd": jnp.asarray(nf / np.maximum(cmax, 1e-300), dtype),
         "w_rev": jnp.asarray(nr / np.maximum(cmax, 1e-300), dtype),
-        # raw |c_ji| for the pre-scaled (e = lambda * cmax) fixup path
-        "c_rev_norm": jnp.asarray(nr, dtype),
     }
 
 
@@ -587,8 +579,7 @@ def d_from_e(mask, e, e_T):
     """Step 2 (symmetrization): d = max(e_ij, e_ji) on unmasked edges.
 
     jnp.where (not multiplication by the mask) so that garbage at masked
-    slots — e is an uninitialized-margin Pallas output — cannot poison d
-    (NaN * 0 == NaN)."""
+    slots (never-refreshed ghost rows) cannot poison d (NaN * 0 == NaN)."""
     return jnp.where(mask > 0, jnp.maximum(e, e_T), jnp.zeros_like(e))
 
 
@@ -598,8 +589,8 @@ class Sideband:
     Rows whose stencil exceeds the canvas 8-neighborhood (valence != 4
     block corners, StructuredData.ev_side) are recomputed here on a tiny
     ELL stencil — one XLA evaluation of each phase over O(#EV) rows —
-    and scattered back into the canvas arrays after each kernel phase,
-    so every other row keeps the fused-kernel fast path.  The reference
+    and scattered back into the canvas arrays after each phase, so
+    every other row keeps the shift stencil.  The reference
     handles such rows for free in its uniform CSR loop
     (sparse_matrix_simd.h:63-297); this is the canvas rendition.
 
@@ -763,19 +754,12 @@ def tau_max_from_d(sa, d, cfl, tau_cap):
     return jnp.minimum(tau_max, tau_cap)
 
 
-def _expand_edges(flux, node_ndim=1):
-    """Insert a broadcast edge axis before the node axes.
-
-    node_ndim is 1 for flat [.., n] arrays and 2 inside the Pallas tiles
-    where the node axis is a [.., TH, TW] canvas block.
-    """
-    return jax.tree.map(
-        lambda x: jnp.expand_dims(x, x.ndim - node_ndim), flux
-    )
+def _expand_edges(flux):
+    """Insert a broadcast edge axis before the node axis."""
+    return jax.tree.map(lambda x: jnp.expand_dims(x, x.ndim - 1), flux)
 
 
-def _fluxes(eq, sa, prec, init_prec, U, U_j, prec_j, init_prec_j,
-            fl_i=None, fl_j=None):
+def _fluxes(eq, sa, prec, init_prec, U, U_j, prec_j, init_prec_j):
     """Edge and diagonal flux divergences (+ the raw flux contributions).
 
     flux contributions are opaque pytrees (a flux tensor for Euler, a
@@ -783,11 +767,9 @@ def _fluxes(eq, sa, prec, init_prec, U, U_j, prec_j, init_prec_j,
     neighbor states equals gathering the nodal contributions since they
     are pointwise in (precomputed, initial_precomputed, U).
     """
-    flux_i = (fl_i if fl_i is not None
-              else eq.flux_contribution(prec, init_prec, U))
-    flux_j = (fl_j if fl_j is not None
-              else eq.flux_contribution(prec_j, init_prec_j, U_j))
-    flux_i_e = _expand_edges(flux_i, sa.mask.ndim - 1)
+    flux_i = eq.flux_contribution(prec, init_prec, U)
+    flux_j = eq.flux_contribution(prec_j, init_prec_j, U_j)
+    flux_i_e = _expand_edges(flux_i)
     flux_ij = eq.flux_divergence(flux_i_e, flux_j, sa.cij)
     flux_ii = eq.flux_divergence(flux_i, flux_i, sa.cii)
     return flux_i, flux_i_e, flux_j, flux_ij, flux_ii
@@ -810,13 +792,8 @@ def _hof_divergence(eq, flux_a, flux_b, c):
 
 
 def _stage_terms(eq, sa, m, stage_U, stage_prec, stage_U_j, stage_prec_j,
-                 stage_weights, init_prec, init_prec_j, tau, want_P,
-                 stage_fl=None):
+                 stage_weights, init_prec, init_prec_j, tau, want_P):
     """Accumulated stage contributions via lax.cond slots.
-
-    stage_fl: optional per-stage callables () -> (flux_s_i, flux_s_j)
-    supplying window-hoisted flux tensors (Pallas path); evaluated inside
-    the cond so zero-weight stages still skip the work.
 
     Returns (F_increment [C, n], P_increment [C, K, n] or scalar 0).
     """
@@ -827,18 +804,14 @@ def _stage_terms(eq, sa, m, stage_U, stage_prec, stage_U_j, stage_prec_j,
         w_s = stage_weights[s]
 
         def _compute(_, s=s, w_s=w_s):
-            if stage_fl is not None:
-                flux_s_i, flux_s_j = stage_fl[s]()
-            else:
-                flux_s_i = eq.flux_contribution(
-                    stage_prec[s], init_prec, stage_U[s]
-                )
-                flux_s_j = eq.flux_contribution(
-                    stage_prec_j[s], init_prec_j, stage_U_j[s]
-                )
+            flux_s_i = eq.flux_contribution(
+                stage_prec[s], init_prec, stage_U[s]
+            )
+            flux_s_j = eq.flux_contribution(
+                stage_prec_j[s], init_prec_j, stage_U_j[s]
+            )
             hof_s = _hof_divergence(
-                eq, _expand_edges(flux_s_i, sa.mask.ndim - 1),
-                flux_s_j, sa.cij,
+                eq, _expand_edges(flux_s_i), flux_s_j, sa.cij,
             )
             hof_s_ii = _hof_divergence(eq, flux_s_i, flux_s_i, sa.cii)
             F_inc = jnp.sum(hof_s * m, axis=1) + hof_s_ii
@@ -911,8 +884,7 @@ def _affine_shift(eq, sa, flux_i, flux_i_e, flux_j, d, tau, S_i):
 
 def phase_low_order(eq, p, sa, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
                     stage_U, stage_prec, stage_U_j, stage_prec_j,
-                    stage_weights, init_prec, init_prec_j,
-                    fl_i=None, fl_j=None, stage_fl=None):
+                    stage_weights, init_prec, init_prec_j):
     """Step 4: low-order update, high-order RHS F_i, limiter bounds.
 
     Returns (U_low [C, n], F [C, n], bounds [B, n]).
@@ -933,7 +905,7 @@ def phase_low_order(eq, p, sa, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
     scaled_c_ij = sa.cij / jnp.maximum(d, regularization)[None]
 
     flux_i, flux_i_e, flux_j, flux_ij, flux_ii = _fluxes(
-        eq, sa, prec, init_prec, U, U_j, prec_j, init_prec_j, fl_i, fl_j
+        eq, sa, prec, init_prec, U, U_j, prec_j, init_prec_j
     )
     dU = _graph_dU(eq, U, U_j, flux_i_e, flux_j)
     m = sa.mask[None]
@@ -971,7 +943,6 @@ def phase_low_order(eq, p, sa, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
         F_inc, _ = _stage_terms(
             eq, sa, m, stage_U, stage_prec, stage_U_j, stage_prec_j,
             stage_weights, init_prec, init_prec_j, tau, want_P=False,
-            stage_fl=stage_fl,
         )
         F = F + F_inc
 
@@ -994,8 +965,7 @@ def phase_low_order(eq, p, sa, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
 def phase_p_l1(eq, p, sa, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
                F, F_j, m_j, U_low, bounds,
                stage_U, stage_prec, stage_U_j, stage_prec_j, stage_weights,
-               init_prec, init_prec_j, fl_i=None, fl_j=None,
-               stage_fl=None):
+               init_prec, init_prec_j):
     """Step 5: P_ij with mass-matrix correction + first limiter pass.
 
     Returns (P [C, K, n], l [K, n], success [K, n]).
@@ -1010,7 +980,7 @@ def phase_p_l1(eq, p, sa, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
         factor = jnp.maximum(factor, sa.incidence)
     d_H = d * factor
     flux_i, flux_i_e, flux_j, flux_ij, _ = _fluxes(
-        eq, sa, prec, init_prec, U, U_j, prec_j, init_prec_j, fl_i, fl_j
+        eq, sa, prec, init_prec, U, U_j, prec_j, init_prec_j
     )
     dU = _graph_dU(eq, U, U_j, flux_i_e, flux_j)
 
@@ -1030,7 +1000,6 @@ def phase_p_l1(eq, p, sa, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
         _, P_inc = _stage_terms(
             eq, sa, m, stage_U, stage_prec, stage_U_j, stage_prec_j,
             stage_weights, init_prec, init_prec_j, tau, want_P=True,
-            stage_fl=stage_fl,
         )
         P = P + P_inc
 
@@ -1042,10 +1011,6 @@ def phase_p_l1(eq, p, sa, U, prec, U_j, prec_j, d, alpha, alpha_j, tau,
     P = P + b_ij[None] * F_j - b_ji[None] * F[:, None]
     P = P * (tau * sa.m_lumped_inv * sa.n_nbrs)[None, None]
 
-    if _os.environ.get("RYUJIN_PK3_ABLATE") == "nolimit":
-        # measurement aid: skip the limiter Newton (P still assembled)
-        l = jnp.sum(jnp.abs(P), axis=0) * 1e-30
-        return P, l, l < 1.0
     psi0 = (
         eq.limiter_psi0(bounds[:, None], U_low[:, None])
         if hasattr(eq, "limiter_psi0") else None
@@ -1147,13 +1112,7 @@ class HyperbolicModule:
         params: HyperbolicModuleParams = HyperbolicModuleParams(),
         dtype=jnp.float64,
         initial_precomputed: Optional[jax.Array] = None,
-        backend: str = "xla",
-        tile: Tuple[int, int] = (16, 256),
     ):
-        """backend: "xla" (any mesh/dtype; CPU verification path) or
-        "pallas" (fused TPU kernels; 2D non-periodic structured canvases;
-        "pallas_interpret" runs the same kernels in interpreter mode for
-        CPU debugging)."""
         self.eq = equation
         self.params = params
         self.dtype = dtype
@@ -1161,22 +1120,6 @@ class HyperbolicModule:
             self.stencil = StructuredStencil.from_data(ell, dtype)
         else:
             self.stencil = _stencil_from_ell(ell, dtype)
-        # prepare_state_vector needs a gather/shift-capable stencil even
-        # when the pallas backend replaces self.stencil with raw canvases:
-        self._xla_stencil = self.stencil
-        self._pallas = None
-        if backend.startswith("pallas"):
-            if not isinstance(ell, StructuredData):
-                raise ValueError("pallas backend requires structured data")
-            from .pallas_step import PallasStepper
-
-            self._pallas = PallasStepper(
-                equation, params, ell, dtype=dtype, tile=tile,
-                interpret=(backend == "pallas_interpret"),
-            )
-            # the integrator threads self.stencil through the jit boundary;
-            # for the pallas path that must be the canvas-array pytree:
-            self.stencil = self._pallas.arrays
         self.initial_state_fn = initial_state_fn
         self.n_pad = ell.n_pad
         if initial_precomputed is None:
@@ -1193,13 +1136,9 @@ class HyperbolicModule:
                 equation, params, ell, dtype,
                 initial_precomputed=self.initial_precomputed,
             )
-        if self._pallas is not None:
-            self._pallas.sideband = self._sideband
 
         # Flatten boundary rounds into a static list.  Indices are sorted
-        # so the per-substep BC scatters can claim sorted+unique (TPU
-        # scatter without the hints sorts/serializes on device — measured
-        # as a large share of prepare_state_vector on the 3D box):
+        # so the per-substep BC scatters can claim sorted+unique:
         self.boundary: List[BoundaryCondition] = []
         for rnd in ell.boundary_rounds:
             for bc_id in sorted(rnd.keys()):
@@ -1214,19 +1153,15 @@ class HyperbolicModule:
                     )
                 )
 
-        # Dense BC application for canvas stencils: even hinted TPU
-        # scatters run at ~60 M elem/s (a 3D box's ~30k boundary rows
-        # cost ~3 ms/substep, traced), while a full-canvas where-select
-        # is a handful of HBM passes (~0.1 ms).  Static per-(round, id)
+        # Dense BC application for canvas stencils: static per-(round, id)
         # masks + a normal canvas; apply_boundary_conditions is pointwise
         # in (U, normal, dirichlet), so evaluating it on the full canvas
         # and where-selecting the group rows is bitwise-identical to the
-        # gather/transform/scatter route (the ELL backend keeps it).
-        # Cost model: the scatter route is ~17 ns per scattered element;
-        # the dense route is ~3 full-canvas HBM passes per group.  A 2D
-        # flagship (1D boundary, ~6k rows on a 3.3M canvas) keeps the
-        # scatter; a 3D box (2D surface, ~30k rows on a 660k canvas)
-        # goes dense.
+        # gather/transform/scatter route (the ELL layout keeps it).  The
+        # scatter route costs per boundary row, the dense route a few
+        # full-canvas passes per group: a 2D mesh (1D boundary) keeps the
+        # scatter, a 3D box (2D surface) goes dense.  The n_pad // 32
+        # cutoff is not measured on the H100 yet.
         n_bc_rows = sum(
             len(g.index)
             for rnd in ell.boundary_rounds
@@ -1235,7 +1170,7 @@ class HyperbolicModule:
         )
         _dense_env = _os.environ.get("RYUJIN_DENSE_BC")  # force for tests
         self._bc_dense = None
-        if isinstance(self._xla_stencil, StructuredStencil) and (
+        if isinstance(self.stencil, StructuredStencil) and (
             _dense_env == "1"
             or (_dense_env != "0" and n_bc_rows > ell.n_pad // 32)
         ):
@@ -1280,19 +1215,16 @@ class HyperbolicModule:
         # block interface; those are corrected by `_interface_fixup`
         # (sd.sym_fixup, evaluated two-directionally in XLA) while the
         # block interiors keep the half-slot evaluation:
-        # Multi-block half-slot evaluation is OFF by default: measured on
-        # the airfoil C-mesh (scripts/probe_multiblock.py ABLATE=1), the
-        # multi-block PK1 is window-DMA-bound, so halving the Riemann
-        # solves buys nothing while the glue (half refresh + interface
-        # fixup + transpose rolls) costs ~1%: 6.42 vs 6.34 ms/substep.
-        # The machinery stays available (RYUJIN_SYM_MB=1) and tested
-        # (tests/test_multiblock.py runs both paths).
+        # Multi-block half-slot evaluation is OFF by default (opt in with
+        # RYUJIN_SYM_MB=1; tests/test_multiblock.py runs both paths):
+        # whether halving the Riemann solves pays for the half refresh +
+        # interface fixup glue is not measured on the H100.
         sym_mb_enabled = _os.environ.get("RYUJIN_SYM_MB") == "1"
         sym = bool(getattr(equation, "riemann_symmetric", False))
-        is_canvas = isinstance(self._xla_stencil, StructuredStencil)
+        is_canvas = isinstance(self.stencil, StructuredStencil)
         multiblock = is_canvas and (
-            self._xla_stencil.gmap_edge is not None
-            or self._xla_stencil.gmap_edge_z is not None
+            self.stencil.gmap_edge is not None
+            or self.stencil.gmap_edge_z is not None
         )
         sym_fix = getattr(ell, "sym_fixup", None)
         self._sym_riemann = sym and is_canvas and not multiblock
@@ -1300,17 +1232,16 @@ class HyperbolicModule:
             sym and multiblock and sym_fix is not None and sym_mb_enabled
         )
         self._bp = (
-            _boundary_pair_data(self._xla_stencil, dtype)
+            _boundary_pair_data(self.stencil, dtype)
             if (self._sym_riemann or self._sym_mb)
             else None
         )
         # The boundary-pair fixup is a gather/scatter over the coupling
-        # set; TPU gather/scatter runs at ~60 M elem/s, so a LARGE set
-        # (a 3D box's whole 2D surface: ~160k slot pairs = ~8.5 ms per
-        # substep, traced) costs far more than the half-Riemann shortcut
-        # saves (~0.3 ms of Riemann in 3D).  Evaluate both directions
-        # instead when the set exceeds ~n/16 slot pairs — the 2D flagship
-        # (1D boundary, O(sqrt n) pairs) keeps the shortcut.
+        # set, so a LARGE set (a 3D box's whole 2D surface) can cost more
+        # than the half-Riemann shortcut saves.  Evaluate both directions
+        # instead when the set exceeds ~n/16 slot pairs — a 2D mesh (1D
+        # boundary, O(sqrt n) pairs) keeps the shortcut.  The cutoff is
+        # not measured on the H100 yet.
         if (
             self._sym_riemann
             and self._bp is not None
@@ -1347,35 +1278,20 @@ class HyperbolicModule:
             # src slots are < K/2 (the flat k * n + cell indices are the
             # same in the [K/2, n] layout); entries with an uncomputed
             # source slot are exactly the broken routes the fixup covers
-            dst, src = (np.asarray(a) for a in self._xla_stencil.gmap_edge)
+            dst, src = (np.asarray(a) for a in self.stencil.gmap_edge)
             n_flat = ell.n_pad
-            K2n = (self._xla_stencil.K // 2) * n_flat
+            K2n = (self.stencil.K // 2) * n_flat
             keep = (dst < K2n) & (src < K2n)
             hd, hs = dst[keep], src[keep]
             o = np.argsort(hd, kind="stable")
             self._gmap_half = (
                 jnp.asarray(hd[o], jnp.int32), jnp.asarray(hs[o], jnp.int32)
             )
-        if self._pallas is not None:
-            self._pallas.lambda_fixup = self._lambda_fixup
-            self._pallas.interface_fixup = (
-                self._interface_fixup if self._sym_mb else None
-            )
-            self._pallas.gmap_edge_half = self._gmap_half
-            # the kernels' half-slot path needs the fixup to be correct;
-            # when the coupling set is too large for it (above), they
-            # must evaluate both directions too:
-            self._pallas.sym_enabled = self._sym_riemann or self._sym_mb
 
-    def _lambda_fixup(self, lam, Up, prec, prescaled=False):
+    def _lambda_fixup(self, lam, Up, prec):
         """Correct the half-slot lambda at coupling boundary pairs:
         set lam_hat = max(lam_fwd |c_ij|, lam_rev |c_ji|) / cmax so that
-        d = lam_hat * cmax equals the reference's max(d_ij, d_ji).
-
-        prescaled=True: the canvas already holds d = lambda * cmax (the
-        3D slab kernels fold cmax into PK1's output); `cur` then scales
-        by w_fwd = |c_ij|/cmax exactly as before, while the freshly
-        computed reverse lambda multiplies the raw |c_ji|."""
+        d = lam_hat * cmax equals the reference's max(d_ij, d_ji)."""
         bp = self._bp
         if bp is None:
             return lam
@@ -1397,8 +1313,7 @@ class HyperbolicModule:
             newton_tol=p.riemann_newton_tolerance, **kw,
         )
         cur = lam_f[bp["k"], bp["i"]]
-        w_rev = bp["c_rev_norm"] if prescaled else bp["w_rev"]
-        val = jnp.maximum(cur * bp["w_fwd"], lam_rev * w_rev)
+        val = jnp.maximum(cur * bp["w_fwd"], lam_rev * bp["w_rev"])
         lam_f = lam_f.at[bp["k"], bp["i"]].set(val)
         return lam_f.reshape(shape)
 
@@ -1421,7 +1336,7 @@ class HyperbolicModule:
         max(lam_f |c_f|, lam_r |c_r|) / cmax into the HALF lambda canvas
         at each broken route's read entry (offline/multiblock.py
         sym_fixup).  The downstream d = lam * cmax reconstruction
-        (transpose rolls in XLA, _d_win_sym in the kernels) then recovers
+        (transpose rolls) then recovers
         the reference's two-direction d_ij = max(d_ij, d_ji)
         (hyperbolic_module.template.h:461-490) at exactly those slots
         while block interiors keep the one-solve-per-undirected-edge
@@ -1463,8 +1378,8 @@ class HyperbolicModule:
     def prepare_state_vector(self, U: jax.Array, t,
                              stencil=None) -> Tuple[jax.Array, jax.Array]:
         eq = self.eq
-        if stencil is None or not hasattr(stencil, "nbr"):
-            stencil = self._xla_stencil
+        if stencil is None:
+            stencil = self.stencil
         if self._bc_dense is not None:
             dirichlet_full = (
                 self.initial_state_fn(self._positions, t)
@@ -1554,13 +1469,6 @@ class HyperbolicModule:
 
         Returns (U_new, tau_used, ok).
         """
-        if self._pallas is not None:
-            return self._pallas.step(
-                U_old, prec_old, stage_U, stage_prec, stage_weights,
-                tau, cfl, tau_cap, compute_tau, stencil,
-                init_prec=self.initial_precomputed,
-            )
-
         eq = self.eq
         st = stencil if stencil is not None else self.stencil
         p = self.params
@@ -1709,14 +1617,3 @@ class HyperbolicModule:
 
         return U_new, tau, ok
 
-
-def _precompute_takes_prev(eq) -> bool:
-    import inspect
-
-    return "prev" in inspect.signature(eq.precompute).parameters
-
-
-def _flux_is_state_local(eq) -> bool:
-    """True if flux_contribution depends only on (prec, U) pointwise, so the
-    neighbor flux can be obtained by gathering the nodal flux."""
-    return getattr(eq, "flux_contribution_is_pointwise", True)

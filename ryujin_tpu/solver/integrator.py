@@ -1,6 +1,6 @@
 """Time integration schemes.
 
-TPU-native re-implementation of /root/reference/source/time_integrator.template.h.
+Re-implementation of /root/reference/source/time_integrator.template.h.
 
 The reference expresses its explicit Runge-Kutta schemes as chains of
 forward-Euler IDP substeps with per-stage weight arrays (e.g. erk_33:
@@ -14,9 +14,8 @@ substep time offsets) and the whole time step runs on device:
     (:250-275) becomes a lax.while_loop retrying the scheme at cfl_min,
   * `advance` wraps n_steps of that in an outer lax.scan.
 
-This keeps the compiled graph at single-substep size (compile time on TPU
-is superlinear in graph size) and requires zero host synchronisation per
-step — the host only syncs at output ticks.
+This keeps the compiled graph small and requires zero host
+synchronisation per step — the host only syncs at output ticks.
 """
 
 from __future__ import annotations
@@ -285,14 +284,11 @@ class TimeIntegrator:
         tau, ok).
 
         The tableau weights are compile-time constants, so each substep
-        passes only its ACTIVE stage slots to hm.step — the fused kernels
-        then skip the dead stages' window DMAs and flux evaluations
-        entirely (e.g. erk33's first substep has no stage work at all;
-        the previous lax.scan form compiled every substep against the
-        full S-slot buffer and pruned at runtime via lax.cond, which
-        cannot remove the stage windows from the Pallas kernels).  The
-        stage-buffer bookkeeping (dynamic_update_index per substep) and
-        the (1, 0) convex combinations disappear statically too.
+        passes only its ACTIVE stage slots to hm.step and the dead stages'
+        neighbor accesses and flux evaluations are never traced (e.g.
+        erk33's first substep has no stage work at all).  The stage-buffer
+        bookkeeping and the (1, 0) convex combinations disappear
+        statically too.
         """
         hm = self.hyperbolic_module
         tb = TABLEAUX[scheme]

@@ -1,6 +1,6 @@
 """Implicit parabolic (Navier-Stokes) solver: backward Euler + CG.
 
-TPU-native re-design of
+Re-design of
 /root/reference/source/navier_stokes/parabolic_solver.template.h:212-860:
 one implicit backward-Euler step of the parabolic subsystem (Newtonian
 stress for the velocity, Fourier heat flux for the internal energy),
@@ -40,25 +40,29 @@ import numpy as np
 
 from ..offline.mesh import Boundary
 
+# f32 contractions would otherwise be allowed to run as TF32 on GPUs
+# (10-bit mantissa); HIGHEST keeps the f32 solve what it is on the CPU.
+_einsum = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
+
 
 def matvec_family(stencil, pa, V):
     """Returns (L V [dim, n], K^{bd} V [d, n], K^{db} V [d, n]) for the
     gradient-product family pa.kab/pa.kab_ii over `stencil`."""
     V_j = stencil.nbr(V)  # [dim, K, n]
-    lap_edge = jnp.einsum("bbkn->kn", pa.kab)  # sum_b K^{bb}, [K, n]
-    lap_diag = jnp.einsum("bbn->n", pa.kab_ii)
+    lap_edge = _einsum("bbkn->kn", pa.kab)  # sum_b K^{bb}, [K, n]
+    lap_diag = _einsum("bbn->n", pa.kab_ii)
     LV = (
         jnp.sum(lap_edge[None] * V_j * pa.mask[None], axis=1)
         + lap_diag[None] * V
     )
     # T2_d = sum_b K^{bd} V_b ; T3_d = sum_b K^{db} V_b
     T2 = (
-        jnp.einsum("bdkn,bkn->dn", pa.kab * pa.mask[None, None], V_j)
-        + jnp.einsum("bdn,bn->dn", pa.kab_ii, V)
+        _einsum("bdkn,bkn->dn", pa.kab * pa.mask[None, None], V_j)
+        + _einsum("bdn,bn->dn", pa.kab_ii, V)
     )
     T3 = (
-        jnp.einsum("dbkn,bkn->dn", pa.kab * pa.mask[None, None], V_j)
-        + jnp.einsum("dbn,bn->dn", pa.kab_ii, V)
+        _einsum("dbkn,bkn->dn", pa.kab * pa.mask[None, None], V_j)
+        + _einsum("dbn,bn->dn", pa.kab_ii, V)
     )
     return LV, T2, T3
 
@@ -74,22 +78,22 @@ def stress_matvec(stencil, pa, mu, lam, dim, V):
 def laplace_matvec(stencil, pa, e):
     """Scalar diffusion matvec sum_b K^{bb} (heat flux operator)."""
     e_j = stencil.nbr(e)  # [K, n]
-    lap_edge = jnp.einsum("bbkn->kn", pa.kab)
-    lap_diag = jnp.einsum("bbn->n", pa.kab_ii)
+    lap_edge = _einsum("bbkn->kn", pa.kab)
+    lap_diag = _einsum("bbn->n", pa.kab_ii)
     return jnp.sum(lap_edge * e_j * pa.mask, axis=0) + lap_diag * e
 
 
 def stress_diagonal(pa, mu, lam, dim):
     """Per-component diagonal of the stress operator [dim, n]."""
-    lap_diag = jnp.einsum("bbn->n", pa.kab_ii)
+    lap_diag = _einsum("bbn->n", pa.kab_ii)
     if dim == 1:
         return ((4.0 / 3.0 * mu + lam) * lap_diag)[None]
-    kdd = jnp.einsum("ddn->dn", pa.kab_ii)
+    kdd = _einsum("ddn->dn", pa.kab_ii)
     return mu * (lap_diag[None] + kdd) + (lam - 2.0 / 3.0 * mu) * kdd
 
 
 def laplace_diagonal(pa):
-    return jnp.einsum("bbn->n", pa.kab_ii)
+    return _einsum("bbn->n", pa.kab_ii)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,14 +361,14 @@ class ParabolicSolver:
         st = self.stencil
         V_j = st.nbr(V_new)  # [dim, K, n]
         dV = V_new[:, None] - V_j  # [dim, K, n]
-        lap_edge = jnp.einsum("bbkn->kn", pa.kab)
+        lap_edge = _einsum("bbkn->kn", pa.kab)
         if self.dim == 1:
             quad = (4.0 / 3.0 * mu + lam) * lap_edge * dV[0] * dV[0]
         else:
             # S_ij[d, b] = mu (L_ij delta_db + K^{bd}_ij)
             #              + (lam - 2/3 mu) K^{db}_ij
             t_lap = lap_edge * jnp.sum(dV * dV, axis=0)
-            t_bd = jnp.einsum("bdkn,bkn,dkn->kn", pa.kab, dV, dV)
+            t_bd = _einsum("bdkn,bkn,dkn->kn", pa.kab, dV, dV)
             quad = mu * (t_lap + t_bd) + (lam - 2.0 / 3.0 * mu) * t_bd
         mK_i = -0.5 * jnp.sum(quad * pa.mask, axis=0)
 

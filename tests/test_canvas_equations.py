@@ -1,9 +1,8 @@
-"""Pallas fused kernels across equation families.
+"""The canvas layout across equation families.
 
-The fused kernels share the phase functions of solver/hyperbolic.py, so
-every equation the XLA path supports must produce identical physics on
-the Pallas path (interpret mode on CPU; the same kernels compile for
-TPU).  These tests pin the families with non-Euler feature flags:
+The canvas and ELL layouts share the phase functions of
+solver/hyperbolic.py, so every equation must produce identical physics
+on both.  These tests pin the families with non-Euler feature flags:
 
   * shallow water — equilibrated states, affine shift, high-order flux,
     limiter fluxes, nodal sources (hyperbolic_module.template.h:700-795)
@@ -24,22 +23,18 @@ from ryujin_tpu.solver.hyperbolic import HyperbolicModule
 from ryujin_tpu.solver.integrator import TimeIntegrator
 
 
-def _compare_backends(eq, mesh, init, n_steps, cfl=0.3,
-                      initial_precomputed=None, rtol=5e-11, atol=1e-12):
+def _compare_layouts(eq, mesh, init, n_steps, cfl=0.3,
+                     initial_precomputed=None, rtol=5e-11, atol=1e-12):
     data = assembly.assemble(mesh)
     sd = structured.pack_structured(data, mesh)
     res = {}
-    for name, packed, be in (
-        ("ell", ell.pack(data), "xla"),
-        ("xla", sd, "xla"),
-        ("pallas", sd, "pallas_interpret"),
-    ):
+    for name, packed in (("ell", ell.pack(data)), ("canvas", sd)):
         ip = None
         if initial_precomputed is not None:
             pos = jnp.asarray(packed.positions.T, jnp.float64)
             ip = initial_precomputed(pos)[None]
         hm = HyperbolicModule(eq, packed, init, dtype=jnp.float64,
-                              backend=be, initial_precomputed=ip)
+                              initial_precomputed=ip)
         ti = TimeIntegrator(hm, "erk 33", cfl_min=cfl, cfl_max=cfl,
                             cfl_recovery_strategy="none")
         U = interpolate_nodal(init, packed, eq, 0.0, jnp.float64)
@@ -48,18 +43,17 @@ def _compare_backends(eq, mesh, init, n_steps, cfl=0.3,
         pos = np.asarray(packed.positions)[real]
         order = np.lexsort(pos.T)
         res[name] = (np.asarray(out[0])[:, real][:, order], float(out[3]))
-    for name in ("xla", "pallas"):
-        assert np.isfinite(res[name][0]).all(), name
-        np.testing.assert_allclose(
-            res[name][0], res["ell"][0], rtol=rtol, atol=atol, err_msg=name,
-        )
-        assert abs(res[name][1] / res["ell"][1] - 1.0) < 1e-11, name
+    assert np.isfinite(res["canvas"][0]).all()
+    np.testing.assert_allclose(
+        res["canvas"][0], res["ell"][0], rtol=rtol, atol=atol
+    )
+    assert abs(res["canvas"][1] / res["ell"][1] - 1.0) < 1e-11
 
 
 @pytest.mark.slow
-def test_pallas_shallow_water_matches_ell():
+def test_shallow_water_canvas_matches_ell():
     """SW smooth vortex exercises equilibrated states + affine shift +
-    high-order flux + the 5-bound KE limiter inside the fused kernels."""
+    high-order flux + the 5-bound KE limiter on the canvas."""
     from ryujin_tpu.equations import shallow_water_initial_states as sw
     from ryujin_tpu.equations.shallow_water import (
         ShallowWater, ShallowWaterParams,
@@ -74,14 +68,14 @@ def test_pallas_shallow_water_matches_ell():
         [-6, -6], [6, 6], [1, 1], refinement=4,
         boundary_conditions=[Boundary.dirichlet] * 4,
     )
-    _compare_backends(eq, mesh, init.state, n_steps=3, cfl=0.25,
+    _compare_layouts(eq, mesh, init.state, n_steps=3, cfl=0.25,
                       initial_precomputed=init.bathymetry)
 
 
 @pytest.mark.slow
-def test_pallas_shallow_water_sources_matches_ell():
+def test_shallow_water_sources_canvas_matches_ell():
     """Manning friction turns on nodal sources (shallow_water/
-    hyperbolic_system.h:561-575); the kernels must apply them."""
+    hyperbolic_system.h:561-575); the canvas must apply them."""
     from ryujin_tpu.equations import shallow_water_initial_states as sw
     from ryujin_tpu.equations.shallow_water import (
         ShallowWater, ShallowWaterParams,
@@ -95,14 +89,14 @@ def test_pallas_shallow_water_sources_matches_ell():
         [-5, -5], [5, 5], [1, 1], refinement=4,
         boundary_conditions=[Boundary.do_nothing] * 4,
     )
-    _compare_backends(eq, mesh, init.state, n_steps=3, cfl=0.4,
+    _compare_layouts(eq, mesh, init.state, n_steps=3, cfl=0.4,
                       initial_precomputed=init.bathymetry)
 
 
 @pytest.mark.slow
-def test_pallas_scalar_kpp_periodic_matches_ell():
-    """KPP rotating flux on a fully periodic canvas (ghost bands +
-    lane-roll wrap), the prm/benchmarks/kpp.prm analog."""
+def test_scalar_kpp_periodic_canvas_matches_ell():
+    """KPP rotating flux on a fully periodic canvas (ghost bands + minor
+    axis wrap), the prm/benchmarks/kpp.prm analog."""
     from ryujin_tpu.equations.scalar_conservation import (
         ScalarConservation, kpp,
     )
@@ -117,10 +111,10 @@ def test_pallas_scalar_kpp_periodic_matches_ell():
         [-2, -2], [2, 2], [1, 1], refinement=4,
         boundary_conditions=[Boundary.periodic] * 4,
     )
-    _compare_backends(eq, mesh, init, n_steps=3, cfl=0.4)
+    _compare_layouts(eq, mesh, init, n_steps=3, cfl=0.4)
 
 
-def test_pallas_aeos_nasg_matches_ell():
+def test_aeos_nasg_canvas_matches_ell():
     """Euler-AEOS runs TWO precomputation cycles (surrogate gamma from a
     stencil min); the canvas stencil path must agree with ELL."""
     from ryujin_tpu.equations import euler_aeos as ae
@@ -147,4 +141,4 @@ def test_pallas_aeos_nasg_matches_ell():
         [-5, -5], [5, 5], [1, 1], refinement=4,
         boundary_conditions=[Boundary.dirichlet] * 4,
     )
-    _compare_backends(eq, mesh, init, n_steps=3, cfl=0.3)
+    _compare_layouts(eq, mesh, init, n_steps=3, cfl=0.3)

@@ -246,7 +246,7 @@ def test_cylinder_ogrid_structured():
     """The default cylinder variant is a single logically-structured
     O-grid (geometry.cylinder_ogrid): exact channel corners, periodic
     theta seam, canvas-packable with the lane wrap as the periodic
-    identification (geometry_cylinder.h analog, TPU-first layout)."""
+    identification (geometry_cylinder.h analog, canvas-first layout)."""
     from ryujin_tpu.offline import structured
 
     mesh = geometry.cylinder(refinement=2)
@@ -270,10 +270,10 @@ def test_cylinder_ogrid_structured():
     assert (ids == Boundary.slip).sum() > 0
 
     packed = structured.pack_structured(data, mesh)
-    # periodic theta on the minor canvas axis: period 64 is not
-    # lane-aligned, so the axis is padded to 128 with the two ghost
-    # columns of minor_wrap realizing the identification — keeping the
-    # compiled Pallas kernels available (pallas_supports):
+    # periodic theta on the minor canvas axis: period 64 is not a
+    # multiple of the 128-column minor padding, so the axis is padded to
+    # 128 with the two ghost columns of minor_wrap realizing the
+    # identification:
     assert packed.shape[-1] == 128
     assert packed.minor_wrap == (64, 128)
     assert packed.n_nodes == 64 * 17

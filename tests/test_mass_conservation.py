@@ -35,7 +35,6 @@ def _run(packed, eq, init, n_steps, shard=False):
 
         device_mesh = make_device_mesh()
         hm.stencil = shard_stencil(hm.stencil, device_mesh, packed.n_pad)
-        hm._xla_stencil = hm.stencil
     ti = TimeIntegrator(hm, "ssprk 33", cfl_min=0.9, cfl_max=0.9,
                         cfl_recovery_strategy="none")
     U = interpolate_nodal(init, packed, eq, 0.0, jnp.float64)

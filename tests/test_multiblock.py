@@ -5,9 +5,7 @@ geometry_disk.h, airfoil: geometry_airfoil.h, cylinder blocks:
 geometry_cylinder.h:62-144) are quilts of logically-structured patches.
 These tests check that the automatic block decomposition + multi-block
 canvas packing reproduces the padded-ELL reference path bit-for-bit
-(cross-interface ghost refresh incl. the reader-frame slot permutation),
-and that the fused Pallas kernels (interpret mode) agree on multi-block
-canvases.
+(cross-interface ghost refresh incl. the reader-frame slot permutation).
 """
 
 import jax.numpy as jnp
@@ -32,8 +30,8 @@ def _bumped_state(eq, packed, init, dtype):
     return U
 
 
-def _advance(eq, packed, init, dtype, n_steps, backend="xla"):
-    hm = HyperbolicModule(eq, packed, init, dtype=dtype, backend=backend)
+def _advance(eq, packed, init, dtype, n_steps):
+    hm = HyperbolicModule(eq, packed, init, dtype=dtype)
     ti = TimeIntegrator(
         hm, scheme="erk 33", cfl_min=0.45, cfl_max=0.9,
         cfl_recovery_strategy="none",
@@ -77,33 +75,12 @@ def test_multiblock_matches_ell(geom, make, sym_mb, monkeypatch):
     np.testing.assert_allclose(A, B, rtol=0.0, atol=1e-12)
 
 
-@pytest.mark.parametrize("sym_mb", ["0", "1"])
-def test_multiblock_pallas_interpret_matches_xla(sym_mb, monkeypatch):
-    """Fused kernels with cross-block ghost refresh == XLA (disk mesh),
-    on both the two-direction default and the RYUJIN_SYM_MB=1 path."""
-    monkeypatch.setenv("RYUJIN_SYM_MB", sym_mb)
-    mesh = geometry.disk(refinement=1)
-    data = assembly.assemble(mesh)
-    sd = multiblock.pack_multiblock(data, mesh, pad_minor=8, pad_major=8)
-    eq = Euler(dim=2)
-    init = make_initial_state(eq, "uniform", primitive_state=(1.4, 3.0, 1.0))
-    dtype = jnp.float64
-    U_x, t_x, tau_x = _advance(eq, sd, init, dtype, 2, backend="xla")
-    U_p, t_p, tau_p = _advance(eq, sd, init, dtype, 2,
-                               backend="pallas_interpret")
-    assert abs(tau_x - tau_p) < 1e-14 * max(1.0, abs(tau_x))
-    real = np.asarray(sd.node_mask) > 0
-    np.testing.assert_allclose(
-        U_p[:, real], U_x[:, real], rtol=0.0, atol=1e-12
-    )
-
-
 def test_extraordinary_vertices_side_rows():
     """The reference-style cylinder block construction has degree-12
     vertices (>8 stencil slots).  Such rows now live on the side ELL
     stencil (StructuredData.ev_side / solver Sideband) while every other
-    row keeps the canvas fast path — the whole mesh must reproduce the
-    padded-ELL reference, on both backends."""
+    row keeps the canvas — the whole mesh must reproduce the padded-ELL
+    reference."""
     mesh = geometry.cylinder(refinement=1, variant="blocks")
     data = assembly.assemble(mesh)
     sd = multiblock.pack_multiblock(data, mesh, pad_minor=8, pad_major=8)
@@ -122,16 +99,6 @@ def test_extraordinary_vertices_side_rows():
     B = Ue[:, np.asarray(el.vertex_to_node)]
     assert np.isfinite(A).all()
     np.testing.assert_allclose(A, B, rtol=0.0, atol=1e-12)
-
-    # fused kernels (interpret) agree too:
-    Up, tp, taup = _advance(eq, sd, init, dtype, 2,
-                            backend="pallas_interpret")
-    Ux, tx, taux = _advance(eq, sd, init, dtype, 2)
-    real = np.asarray(sd.node_mask) > 0
-    assert abs(taup / taux - 1.0) < 1e-14
-    np.testing.assert_allclose(
-        Up[:, real], Ux[:, real], rtol=0.0, atol=1e-12
-    )
 
 
 def test_truly_unstructured_falls_back():
@@ -197,7 +164,6 @@ def test_multiblock_sharded_matches_single_device(geom, make):
     hm = HyperbolicModule(eq, sd8, init, dtype=dtype)
     device_mesh = make_device_mesh(n_dev)
     hm.stencil = shard_stencil(hm.stencil, device_mesh, sd8.n_pad)
-    hm._xla_stencil = hm.stencil
     ti = TimeIntegrator(hm, scheme="erk 33", cfl_min=0.45, cfl_max=0.9,
                         cfl_recovery_strategy="none")
     U0 = shard_state(_bumped_state(eq, sd8, init, dtype), device_mesh)
@@ -243,9 +209,8 @@ def test_amr_multiblock_matches_ell():
     """Locally-refined (2:1 hanging-node) meshes pack onto the multi-block
     canvas: coarse/fine interface rows become EV side rows (incl. EV-EV
     edges transposed side-internally) while block interiors keep the
-    canvas fast path.  Must reproduce padded ELL on both backends — this
-    is the fast-path closure of the ELL cliff (the reference runs its one
-    CSR hot loop on any p4est-adapted mesh,
+    canvas.  Must reproduce padded ELL (the reference runs its one CSR
+    hot loop on any p4est-adapted mesh,
     hyperbolic_module.template.h:417-420)."""
     m2 = _amr_mesh()
     data = assembly.assemble(m2)
@@ -265,15 +230,6 @@ def test_amr_multiblock_matches_ell():
     B = Ue[:, np.asarray(el.vertex_to_node)]
     assert np.isfinite(A).all()
     np.testing.assert_allclose(A, B, rtol=0.0, atol=1e-12)
-
-    Up, tp, taup = _advance(eq, sd, init, dtype, 2,
-                            backend="pallas_interpret")
-    Ux, tx, taux = _advance(eq, sd, init, dtype, 2)
-    real = np.asarray(sd.node_mask) > 0
-    assert abs(taup / taux - 1.0) < 1e-14
-    np.testing.assert_allclose(
-        Up[:, real], Ux[:, real], rtol=0.0, atol=1e-12
-    )
 
 
 def test_amr_multiblock_sharded():
@@ -304,7 +260,6 @@ def test_amr_multiblock_sharded():
     hm = HyperbolicModule(eq, sd8, init, dtype=dtype)
     device_mesh = make_device_mesh(n_dev)
     hm.stencil = shard_stencil(hm.stencil, device_mesh, sd8.n_pad)
-    hm._xla_stencil = hm.stencil
     ti = TimeIntegrator(hm, scheme="erk 33", cfl_min=0.45, cfl_max=0.9,
                         cfl_recovery_strategy="none")
     U0 = shard_state(_bumped_state(eq, sd8, init, dtype), device_mesh)
@@ -362,12 +317,11 @@ class TestExtruded3D:
         return init
 
     @staticmethod
-    def _run(packed, eq, init, backend):
+    def _run(packed, eq, init):
         from ryujin_tpu.postprocess.error import interpolate_nodal
         from ryujin_tpu.solver.integrator import TimeIntegrator
 
-        hm = HyperbolicModule(eq, packed, init, dtype=jnp.float64,
-                              backend=backend)
+        hm = HyperbolicModule(eq, packed, init, dtype=jnp.float64)
         ti = TimeIntegrator(hm, "erk 33", cfl_min=0.3, cfl_max=0.3,
                             cfl_recovery_strategy="none")
         U = interpolate_nodal(init, packed, eq, 0.0, jnp.float64)
@@ -395,36 +349,14 @@ class TestExtruded3D:
         assert packed3.gmap_edge_z is not None
         pe = ell.pack(data3)
         init = self._init(eq)
-        U_e, t_e = self._run(pe, eq, init, "xla")
-        U_s, t_s = self._run(packed3, eq, init, "xla")
+        U_e, t_e = self._run(pe, eq, init)
+        U_s, t_s = self._run(packed3, eq, init)
         assert abs(t_s - t_e) <= 1e-12 * abs(t_e)
         real = np.flatnonzero(packed3.node_to_vertex >= 0)
         dofs = packed3.node_to_vertex[real]
         np.testing.assert_allclose(
             U_s[:, real], U_e[:, pe.vertex_to_node[dofs]],
             rtol=1e-11, atol=1e-13,
-        )
-
-    def test_pallas_interpret(self):
-        from ryujin_tpu.equations.euler import Euler
-        from ryujin_tpu.offline import geometry
-        from ryujin_tpu.offline.geometry import extrude
-        from ryujin_tpu.offline.mesh import Boundary
-
-        eq = Euler(dim=3)
-        base = geometry.disk(refinement=1)
-        mesh3 = extrude(base, 0.0, 0.5, 4,
-                        bc_minus=Boundary.periodic,
-                        bc_plus=Boundary.periodic)
-        data3 = assembly.assemble(mesh3)
-        packed3 = multiblock.pack_multiblock_extruded(data3, mesh3)
-        init = self._init(eq)
-        U_x, t_x = self._run(packed3, eq, init, "xla")
-        U_p, t_p = self._run(packed3, eq, init, "pallas_interpret")
-        assert abs(t_p - t_x) <= 1e-12 * abs(t_x)
-        real = np.flatnonzero(packed3.node_to_vertex >= 0)
-        np.testing.assert_allclose(
-            U_p[:, real], U_x[:, real], rtol=1e-9, atol=1e-12
         )
 
 
@@ -488,9 +420,8 @@ def test_gmsh_import_quilts(tmp_path):
              1.0 / 0.4 + 0.5 * 0.0125 * rho], 0,
         )
 
-    def run(p, backend):
-        hm = HyperbolicModule(eq, p, init, dtype=jnp.float64,
-                              backend=backend)
+    def run(p):
+        hm = HyperbolicModule(eq, p, init, dtype=jnp.float64)
         ti = TimeIntegrator(hm, "erk 33", cfl_min=0.3, cfl_max=0.3,
                             cfl_recovery_strategy="none")
         U = interpolate_nodal(init, p, eq, 0.0, jnp.float64)
@@ -502,8 +433,8 @@ def test_gmsh_import_quilts(tmp_path):
         return np.asarray(U), t
 
     pe = ell.pack(data)
-    U_e, t_e = run(pe, "xla")
-    U_m, t_m = run(packed, "xla")
+    U_e, t_e = run(pe)
+    U_m, t_m = run(packed)
     assert abs(t_m - t_e) <= 1e-12 * abs(t_e)
     real = np.flatnonzero(packed.node_to_vertex >= 0)
     dofs = packed.node_to_vertex[real]

@@ -82,3 +82,16 @@ def test_face_owners_matches_numpy(meshes):
         lambda: assembly._face_cell_centers(mesh, mesh.boundary_faces)
     )
     np.testing.assert_allclose(c_nat, c_np, atol=0)
+
+
+def test_library_key_covers_compiler_and_host():
+    """A library built on one machine is never loaded on another: the
+    cache key changes with the compiler command and the architecture,
+    and the build targets the generic instruction set."""
+    srcs = [native._HERE / s for s in native._SOURCES]
+    base = native._lib_tag(srcs, machine="x86_64")
+    assert native._lib_tag(srcs, machine="x86_64") == base
+    assert native._lib_tag(srcs, machine="aarch64") != base
+    cmd = native._BUILD_CMD + ("-march=native",)
+    assert native._lib_tag(srcs, cmd=cmd, machine="x86_64") != base
+    assert "-march=native" not in native._BUILD_CMD

@@ -54,7 +54,6 @@ def test_sharded_step_matches_single_device():
 
     device_mesh = make_device_mesh(n_dev)
     hm.stencil = shard_stencil(hm.stencil, device_mesh, packed.n_pad)
-    hm._xla_stencil = hm.stencil
     U0s = shard_state(U0, device_mesh)
     ti2 = TimeIntegrator(hm, "erk 33", cfl_min=0.3, cfl_max=0.3,
                          cfl_recovery_strategy="none")
@@ -106,77 +105,25 @@ def test_structured_3d_matches_ell():
     assert abs(res["structured"][1] / res["ell"][1] - 1.0) < 1e-12
 
 
-def test_sharded_pallas_slab_canvas_matches_single_device():
-    """The fused-kernel fast path under shard_map: canvas packed into
-    n_dev ghost-banded slabs, kernels per-device, ghost refresh via the
-    slab-axis roll.  Must reproduce the single-device ELL result, and the
-    compiled HLO must exchange halos with collective-permute — NOT gather
-    state-sized arrays (all-gather)."""
-    from ryujin_tpu.offline.mesh import Boundary
-    from ryujin_tpu.parallel.sharding import (
-        make_device_mesh, shard_pallas_module, shard_state,
-    )
+def _sorted_real(U, packed):
+    real = np.asarray(packed.node_mask) > 0
+    pos = np.asarray(packed.positions)[real]
+    return np.asarray(U)[:, real][:, np.lexsort(pos.T)]
 
-    n_dev = len(jax.devices())
-    assert n_dev >= 2
-    eq = Euler(dim=2)
-    mesh = geometry.rectangular_domain(
-        [-5, -5], [5, 5], [1, 1], refinement=4,
-        boundary_conditions=[Boundary.dirichlet] * 4,
-    )
-    data = assembly.assemble(mesh)
-    init = make_initial_state(
-        eq, "isentropic vortex", direction=[1, 1], position=[-1, -1],
-    )
 
-    # reference: single-device ELL/XLA
-    from ryujin_tpu.offline import ell
+def _assert_halo_exchange_only(ti, stencil, U0, n_state):
+    """The compiled HLO exchanges halos with collective-permute and never
+    all-gathers a state-sized array."""
+    import re
 
-    packed_ref = ell.pack(data)
-    hm_ref = HyperbolicModule(eq, packed_ref, init, dtype=jnp.float64)
-    ti_ref = TimeIntegrator(hm_ref, "erk 33", cfl_min=0.3, cfl_max=0.3,
-                            cfl_recovery_strategy="none")
-    U0r = interpolate_nodal(init, packed_ref, eq, 0.0, jnp.float64)
-    out_r = ti_ref.advance(U0r, 0.0, 3)
-
-    # sharded: slab canvas + pallas (interpret) under shard_map
-    packed = structured.pack_structured(data, mesh, slabs=n_dev)
-    hm = HyperbolicModule(eq, packed, init, dtype=jnp.float64,
-                          backend="pallas_interpret")
-    device_mesh = make_device_mesh(n_dev)
-    shard_pallas_module(hm, device_mesh)
-    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.3, cfl_max=0.3,
-                        cfl_recovery_strategy="none")
-    U0 = shard_state(
-        interpolate_nodal(init, packed, eq, 0.0, jnp.float64), device_mesh
-    )
-    out = ti.advance(U0, 0.0, 3)
-
-    def gather(o, packed):
-        real = np.asarray(packed.node_mask) > 0
-        pos = np.asarray(packed.positions)[real]
-        order = np.lexsort(pos.T)
-        return np.asarray(o)[:, real][:, order]
-
-    np.testing.assert_allclose(
-        gather(out[0], packed), gather(out_r[0], packed_ref),
-        rtol=1e-11, atol=1e-12,
-    )
-    assert abs(float(out[3]) / float(out_r[3]) - 1.0) < 1e-11
-
-    # communication shape: halo exchange must be collective-permute;
-    # state-sized tensors must not be all-gathered
     hlo = (
         ti._advance.lower(
-            hm.stencil, None, U0, jnp.float64(0.0), jnp.float64(jnp.inf), 1
+            stencil, None, U0, jnp.float64(0.0), jnp.float64(jnp.inf), 1
         )
         .compile()
         .as_text()
     )
     assert "collective-permute" in hlo
-    n_state = packed.n_pad
-    import re
-
     for m in re.finditer(r"all-gather[^\n]*", hlo):
         line = m.group(0)
         sizes = [int(s) for s in re.findall(r"f64\[([0-9,]+)\]",
@@ -185,67 +132,85 @@ def test_sharded_pallas_slab_canvas_matches_single_device():
             assert s < n_state, f"state-sized all-gather: {line[:120]}"
 
 
-def test_sharded_pallas_slab_canvas_3d_matches_single_device():
-    """The streamed z-slab 3D kernels under shard_map (canvas z axis in
-    n_dev ghost-banded slabs) must reproduce the single-device ELL
-    result — the 3D rendition of the slab-canvas test above."""
+@pytest.mark.parametrize("dim", [2, 3])
+def test_sharded_slab_canvas_matches_single_device(dim):
+    """GSPMD over a slab canvas: canvas axis 0 packed into n_dev
+    ghost-banded slabs (pack_structured slabs=n_dev), node axis sharded,
+    ghost refresh = slab-axis roll.  Must reproduce the single-device
+    ELL result, with halos riding collective-permute."""
+    from ryujin_tpu.offline import ell
     from ryujin_tpu.offline.mesh import Boundary
     from ryujin_tpu.parallel.sharding import (
-        make_device_mesh, shard_pallas_module, shard_state,
+        make_device_mesh, shard_state, shard_stencil,
     )
-    from ryujin_tpu.offline import ell
 
     n_dev = len(jax.devices())
     assert n_dev >= 2
-    eq = Euler(dim=3)
-    mesh = geometry.rectangular_domain(
-        [0, 0, 0], [1, 1, 1], [1, 1, 1], 3,
-        [Boundary.dirichlet] * 6, dim=3,
-    )
+    eq = Euler(dim=dim)
+    if dim == 2:
+        mesh = geometry.rectangular_domain(
+            [-5, -5], [5, 5], [1, 1], refinement=4,
+            boundary_conditions=[Boundary.dirichlet] * 4,
+        )
+        init = make_initial_state(
+            eq, "isentropic vortex", direction=[1, 1], position=[-1, -1],
+        )
+        n_steps = 3
+    else:
+        mesh = geometry.rectangular_domain(
+            [0, 0, 0], [1, 1, 1], [1, 1, 1], 3,
+            [Boundary.dirichlet] * 6, dim=3,
+        )
+        init = make_initial_state(
+            eq, "uniform", primitive_state=(1.4, 1.0, 0.2, 0.1, 1.0)
+        )
+        n_steps = 1
     data = assembly.assemble(mesh)
-    init = make_initial_state(
-        eq, "uniform", primitive_state=(1.4, 1.0, 0.2, 0.1, 1.0)
-    )
-
-    packed_ref = ell.pack(data)
-    hm_ref = HyperbolicModule(eq, packed_ref, init, dtype=jnp.float64)
-    ti_ref = TimeIntegrator(hm_ref, "erk 33", cfl_min=0.3, cfl_max=0.3,
-                            cfl_recovery_strategy="none")
 
     def bump(packed, U):
         pos = jnp.asarray(packed.positions.T, jnp.float64)
-        b = 1.0 + 0.3 * jnp.exp(-20.0 * jnp.sum((pos - 0.5) ** 2, axis=0))
-        return U.at[0].mul(b).at[4].mul(b)
+        c = jnp.full((dim, 1), 0.5 if dim == 3 else 0.0)
+        b = 1.0 + 0.3 * jnp.exp(-2.0 * jnp.sum((pos - c) ** 2, axis=0))
+        return U.at[0].mul(b).at[-1].mul(b)
 
-    U0r = bump(
-        packed_ref, interpolate_nodal(init, packed_ref, eq, 0.0, jnp.float64)
-    )
-    out_r = ti_ref.advance(U0r, 0.0, 1)
+    def run(packed, device_mesh=None):
+        hm = HyperbolicModule(eq, packed, init, dtype=jnp.float64)
+        ti = TimeIntegrator(hm, "erk 33", cfl_min=0.3, cfl_max=0.3,
+                            cfl_recovery_strategy="none")
+        U0 = bump(packed, interpolate_nodal(init, packed, eq, 0.0,
+                                            jnp.float64))
+        if device_mesh is not None:
+            hm.stencil = shard_stencil(hm.stencil, device_mesh,
+                                       packed.n_pad)
+            U0 = shard_state(U0, device_mesh)
+        return ti, hm, U0, ti.advance(U0, 0.0, n_steps)
 
+    packed_ref = ell.pack(data)
+    _, _, _, out_r = run(packed_ref)
     packed = structured.pack_structured(data, mesh, slabs=n_dev)
-    hm = HyperbolicModule(eq, packed, init, dtype=jnp.float64,
-                          backend="pallas_interpret")
+    assert packed.slab_spec[0] == n_dev
     device_mesh = make_device_mesh(n_dev)
-    shard_pallas_module(hm, device_mesh)
-    ti = TimeIntegrator(hm, "erk 33", cfl_min=0.3, cfl_max=0.3,
-                        cfl_recovery_strategy="none")
-    U0 = shard_state(
-        bump(packed, interpolate_nodal(init, packed, eq, 0.0, jnp.float64)),
-        device_mesh,
-    )
-    out = ti.advance(U0, 0.0, 1)
-
-    def gather(o, packed):
-        real = np.asarray(packed.node_mask) > 0
-        pos = np.asarray(packed.positions)[real]
-        order = np.lexsort(pos.T)
-        return np.asarray(o)[:, real][:, order]
+    ti, hm, U0, out = run(packed, device_mesh)
+    assert len(out[0].sharding.device_set) == n_dev
 
     np.testing.assert_allclose(
-        gather(out[0], packed), gather(out_r[0], packed_ref),
+        _sorted_real(out[0], packed), _sorted_real(out_r[0], packed_ref),
         rtol=1e-11, atol=1e-12,
     )
     assert abs(float(out[3]) / float(out_r[3]) - 1.0) < 1e-11
+    if dim == 2:
+        _assert_halo_exchange_only(ti, hm.stencil, U0, packed.n_pad)
+
+
+def test_chip_smoke_sharded_phase_on_virtual_devices():
+    """chip_smoke's four-card phase (GSPMD step + multi-block slabs, one
+    step from a perturbed state against one device, f32 bounds of the
+    multi-device dry run) at tiny size on four virtual CPU devices."""
+    import chip_smoke
+
+    assert len(jax.devices()) >= 4
+    chip_smoke.phase_sharded(n_dev=4, step_refinement=0,
+                             cylinder_refinement=1, n_time_steps=1)
 
 
 def test_sharded_navier_stokes_step_matches_single_device():
